@@ -1,0 +1,148 @@
+"""Batch-inference serving CLI on top of ``bmnas_tpu_torch.serving``.
+
+Port of ``bmnas_tpu/cli/serve.py::main_serve`` for ``--task mmimdb``. It
+loads a found experiment's genotype and model snapshot and serves a
+dataset split through ``FoundNetServer`` on one device:
+
+    python -m bmnas_tpu_torch.cli.serve --task mmimdb --eval_exp_dir <exp> \\
+        --datadir <root> [--bf16] [--fused_kernels] [--split test] \\
+        [--device cpu]
+
+It runs on CUDA unless ``--device cpu`` is given, and raises when there is
+no CUDA device. Prints one JSON line: {"metric", "value", "samples",
+"samples_per_sec", ...}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+# later slices of the port, by ROADMAP.md Queue 1 item
+_LATER_TASKS = {"ntu": "the NTU slice", "ego": "the Ego slice"}
+
+
+def _resolve_artifacts(exp_dir: str, model_path: str = None):
+    """(genotype, snapshot) under <exp>/best/: eval dirs carry best_test_*,
+    search dirs best_*."""
+    best = os.path.join(exp_dir, "best")
+    geno = None
+    for name in ("best_test_genotype.pkl", "best_genotype.pkl"):
+        p = os.path.join(best, name)
+        if os.path.exists(p):
+            geno = p
+            break
+    snap = model_path
+    if snap is None:
+        for name in ("best_test_model.pt", "best_model.pt"):
+            p = os.path.join(best, name)
+            if os.path.exists(p):
+                snap = p
+                break
+    if geno is None or snap is None:
+        raise SystemExit(f"no genotype/model snapshot under {best}")
+    return geno, snap
+
+
+def _metric(logits: np.ndarray, labels: np.ndarray):
+    from bmnas_tpu_torch.cli.mmimdb import TH_FSCORE
+    from bmnas_tpu_torch.utils.metrics import f1_from_counts, multilabel_counts
+    preds = torch.from_numpy(1.0 / (1.0 + np.exp(-logits)) > TH_FSCORE)
+    counts = multilabel_counts(preds, torch.from_numpy(labels))
+    return "weighted_f1", f1_from_counts(counts, "weighted")
+
+
+def main_serve(argv=None):
+    top = argparse.ArgumentParser(description="BM-NAS found-net serving "
+                                              "(PyTorch port)")
+    top.add_argument("--task", choices=["mmimdb", "ntu", "ego"],
+                     required=True)
+    top.add_argument("--eval_exp_dir", required=True,
+                     help="experiment dir with best/{*genotype.pkl,*model.pt}")
+    top.add_argument("--model", default=None,
+                     help="explicit snapshot path (default: best/ lookup)")
+    top.add_argument("--split", default="test",
+                     help="dataset split/stage to serve")
+    top.add_argument("--bf16", action="store_true",
+                     help="serve with bfloat16 weights/activations")
+    top.add_argument("--device", default=None,
+                     help="torch device (default: the current CUDA device; "
+                          "'cpu' must be asked for)")
+    args0, rest = top.parse_known_args(argv)
+    if args0.task in _LATER_TASKS:
+        raise NotImplementedError(
+            f"--task {args0.task}: not ported yet ({_LATER_TASKS[args0.task]}"
+            ", ROADMAP.md Queue 1)")
+
+    from bmnas_tpu_torch.device import resolve_device
+    device = resolve_device(args0.device)
+
+    from bmnas_tpu_torch.cli.common import fail_fast_checks, model_kwargs_from_args
+    from bmnas_tpu_torch.cli.mmimdb import parse_found_args
+    args = parse_found_args(rest)
+    fail_fast_checks(args)
+
+    from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
+    from bmnas_tpu_torch.serving import load_server
+
+    geno_path, snap_path = _resolve_artifacts(args0.eval_exp_dir, args0.model)
+    genotype = load_genotype(geno_path)
+    model = FoundImageTextNet.from_genotype(
+        genotype, node_variant=args.node_variant,
+        fused_eval=args.fused_kernels, device=device,
+        **model_kwargs_from_args(args))
+    server = load_server(snap_path, model,
+                         dtype=torch.bfloat16 if args0.bf16
+                         else torch.float32,
+                         fused=args.fused_kernels, device=device)
+    dataset = MMIMDBDataset(args.datadir, args0.split,
+                            small_dataset=args.small_dataset,
+                            num_workers=args.num_workers)
+
+    logits_parts, labels_parts = [], []
+    n_total = n_warm = n_batches = 0
+    t0 = t_warm = time.perf_counter()
+    for batch in dataset.batches(args.batchsize, shuffle=False):
+        n = int(batch["mask"].sum())
+        logits_parts.append(server.predict(batch))
+        labels_parts.append(batch["label"][:n])
+        n_total += n
+        n_batches += 1
+        if n_warm == 0:
+            # the first batch builds kernels and warms cuDNN; steady-state
+            # throughput starts after it
+            n_warm, t_warm = n_total, time.perf_counter()
+    elapsed = time.perf_counter() - t0
+    steady = time.perf_counter() - t_warm
+    logits = np.concatenate(logits_parts, axis=0)
+    labels = np.concatenate(labels_parts, axis=0)
+    name, value = _metric(logits, labels)
+    result = {
+        "metric": name,
+        "value": round(value, 6),
+        "samples": n_total,
+        "batches": n_batches,
+        "samples_per_sec": round(
+            (n_total - n_warm) / steady if n_total > n_warm
+            else n_total / max(elapsed, 1e-9), 2),
+        "wall_seconds_incl_warmup": round(elapsed, 2),
+        "logits_finite": bool(np.isfinite(logits).all()),
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else str(device)),
+        "genotype": geno_path,
+        "model": snap_path,
+        "bf16": bool(args0.bf16),
+        "fused_kernels": bool(args.fused_kernels),
+    }
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main_serve()

@@ -1,0 +1,273 @@
+"""The found fusion cell in eval mode: a CUDA kernel and its plain version.
+
+Replaces ``bmnas_tpu/ops/kernels/node_mixed.py::found_node_cell_multi_fused``
+(a Pallas TPU kernel). The kernel is ``bmnas_tpu_torch/csrc/found_cell.cu``;
+its source note says what bounds it on an H100 and how the design answers.
+
+* ``found_node_cell_reference``: the plain PyTorch version. The CPU tests
+  hold it against the JAX kernel; ``chip_smoke.py`` holds the CUDA kernel
+  against it on the card.
+* ``found_node_cell_fused``: the wrapper. A CPU tensor takes the plain
+  version; a CUDA tensor launches the kernel or raises.
+
+Semantics (eval mode, BatchNorms folded into the dense weights, dropout
+off): S chained inner steps, each one static branch over two states picked
+by static skip/none edges (Sum; attention + per-sample LayerNorm; GLU;
+ConcatFC + ReLU), then for ``multiplier != 1`` concat of the last m states
+-> out_conv -> ReLU, then ``+ x`` and a per-sample LayerNorm. ``steps_cfg``
+is the JAX kernel's: per step ``(branch, (skip_x, idx_x), (skip_y, idx_y))``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from bmnas_tpu_torch.ops.kernels import LAUNCHES
+from bmnas_tpu_torch.ops.layers import layer_norm_2d
+
+# branch index per inner-op name (STEP_STEP_PRIMITIVES order; the legacy
+# 'cat_conv_relu' is ConcatFC)
+FUSABLE_STEP_OPS = {"Sum": 0, "ScaleDotAttn": 1, "LinearGLU": 2,
+                    "ConcatFC": 3, "cat_conv_relu": 3}
+FUSABLE_EDGES = ("skip", "none")
+MAX_STEPS = 4  # kMaxSteps in csrc/found_cell.cu
+MAX_C = 256  # two threads per channel, at most 512 a block (found_cell.cu)
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+
+StepsCfg = Tuple[Tuple[int, Tuple[bool, int], Tuple[bool, int]], ...]
+
+
+@dataclasses.dataclass
+class FoundCellParams:
+    """Folded eval-mode parameters of one found cell, stacked over steps.
+
+    Dense weights are in (in, out) layout. A step's unused branch slots are
+    zeros and never read.
+    """
+    ln1_scale: torch.Tensor   # (S, L, C) attention LayerNorm
+    ln1_bias: torch.Tensor    # (S, L, C)
+    glu_kernel: torch.Tensor  # (S, 2C, 2C) BN folded
+    glu_bias: torch.Tensor    # (S, 2C)
+    cfc_kernel: torch.Tensor  # (S, 2C, C) BN folded
+    cfc_bias: torch.Tensor    # (S, C)
+    oc_kernel: Optional[torch.Tensor]  # (m*C, C) BN folded, None for m = 1
+    oc_bias: Optional[torch.Tensor]    # (C,)
+    ln2_scale: torch.Tensor   # (L, C) output LayerNorm
+    ln2_bias: torch.Tensor    # (L, C)
+
+    def tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    def to(self, *args, **kwargs) -> "FoundCellParams":
+        return FoundCellParams(*[
+            None if t is None else t.to(*args, **kwargs).contiguous()
+            for t in self.tensors()])
+
+
+def fuse_bn_into_dense(kernel, bias, scale, bn_bias, mean, var,
+                       eps: float = 1e-5):
+    """Fold an eval-mode BatchNorm after a dense layer ((in, out) kernel):
+    y = scale * (xW + b - mean) / sqrt(var + eps) + bn_bias."""
+    inv = scale / torch.sqrt(var + eps)
+    return kernel * inv[None, :], (bias - mean) * inv + bn_bias
+
+
+def found_cell_steps_cfg(inner_edges, inner_steps) -> StepsCfg:
+    """Per-step kernel configuration from a StepGenotype."""
+    cfg = []
+    for i, op in enumerate(inner_steps):
+        (kx, ix), (ky, iy) = inner_edges[2 * i], inner_edges[2 * i + 1]
+        cfg.append((FUSABLE_STEP_OPS[op], (kx == "skip", ix),
+                    (ky == "skip", iy)))
+    return tuple(cfg)
+
+
+def found_cell_blocker(inner_edges, inner_steps, C: int = 8) -> str:
+    """'' when the kernel can host the genotype at width C, else the
+    reason."""
+    if C % 8 or C > MAX_C:
+        return f"C={C} is not a multiple of 8 up to {MAX_C}"
+    bad_ops = [o for o in inner_steps if o not in FUSABLE_STEP_OPS]
+    if bad_ops:
+        return f"inner op(s) {bad_ops} not in {sorted(FUSABLE_STEP_OPS)}"
+    bad_edges = [k for k, _ in inner_edges if k not in FUSABLE_EDGES]
+    if bad_edges:
+        return f"inner edge op(s) {bad_edges} not in {FUSABLE_EDGES}"
+    if len(inner_steps) > MAX_STEPS:
+        return f"{len(inner_steps)} inner steps > {MAX_STEPS}"
+    return ""
+
+
+def found_node_cell_reference(x: torch.Tensor, y: torch.Tensor,
+                              p: FoundCellParams, steps_cfg: StepsCfg,
+                              multiplier: int = 1, eps: float = 1e-5
+                              ) -> torch.Tensor:
+    """Plain PyTorch version: fp32 arithmetic, output in x's dtype."""
+    dtype = x.dtype
+    f = lambda t: t.float()  # noqa: E731
+    x, y = f(x), f(y)
+    C = x.shape[-1]
+    zeros = torch.zeros_like(x)
+    states = [x, y]
+    for i, (branch, (skip_x, idx_x), (skip_y, idx_y)) in enumerate(steps_cfg):
+        a = states[idx_x] if skip_x else zeros
+        b = states[idx_y] if skip_y else zeros
+        if branch == 0:
+            o = a + b
+        elif branch == 1:
+            scores = torch.einsum("blc,bmc->blm", a, b) / math.sqrt(C)
+            o = torch.einsum("blm,bmc->blc", scores.softmax(dim=-1), b)
+            o = layer_norm_2d(o, f(p.ln1_scale[i]), f(p.ln1_bias[i]), eps)
+        elif branch == 2:
+            h = torch.cat([a, b], -1) @ f(p.glu_kernel[i]) + f(p.glu_bias[i])
+            o = h[..., :C] * torch.sigmoid(h[..., C:])
+        else:
+            h = torch.cat([a, b], -1) @ f(p.cfc_kernel[i]) + f(p.cfc_bias[i])
+            o = torch.relu(h)
+        states.append(o)
+    if multiplier == 1:
+        o = states[-1]
+    else:
+        o = torch.relu(torch.cat(states[-multiplier:], -1) @ f(p.oc_kernel)
+                       + f(p.oc_bias))
+    o = layer_norm_2d(o + x, f(p.ln2_scale), f(p.ln2_bias), eps)
+    return o.to(dtype)
+
+
+def _check(x, y, p: FoundCellParams, steps_cfg: StepsCfg, multiplier: int):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"found_cell: dtype {x.dtype} not in (fp32, bf16)")
+    if x.dim() != 3 or y.shape != x.shape:
+        raise ValueError(f"found_cell: x {tuple(x.shape)} and y "
+                         f"{tuple(y.shape)} must both be (B, L, C)")
+    B, L, C = x.shape
+    if C % 8 or C > MAX_C:
+        raise ValueError(f"found_cell: C={C}, the kernel hosts multiples "
+                         f"of 8 up to {MAX_C}")
+    S = len(steps_cfg)
+    if not 1 <= S <= MAX_STEPS:
+        raise ValueError(f"found_cell: {S} steps, the kernel hosts "
+                         f"1..{MAX_STEPS}")
+    if not 1 <= multiplier <= S + 2:
+        raise ValueError(f"found_cell: multiplier {multiplier} not in "
+                         f"1..{S + 2}")
+    for i, (branch, (_, ix), (_, iy)) in enumerate(steps_cfg):
+        if branch not in (0, 1, 2, 3) or not (0 <= ix < 2 + i
+                                              and 0 <= iy < 2 + i):
+            raise ValueError(f"found_cell: bad step {i}: {steps_cfg[i]}")
+    want = {"ln1_scale": (S, L, C), "ln1_bias": (S, L, C),
+            "glu_kernel": (S, 2 * C, 2 * C), "glu_bias": (S, 2 * C),
+            "cfc_kernel": (S, 2 * C, C), "cfc_bias": (S, C),
+            "ln2_scale": (L, C), "ln2_bias": (L, C)}
+    if multiplier != 1:
+        want.update(oc_kernel=(multiplier * C, C), oc_bias=(C,))
+    for name, shape in want.items():
+        t = getattr(p, name)
+        if t is None or tuple(t.shape) != shape:
+            raise ValueError(f"found_cell: {name} must be {shape}, got "
+                             f"{None if t is None else tuple(t.shape)}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"found_cell: {name} is {t.dtype} on "
+                            f"{t.device}, x is {x.dtype} on {x.device}")
+    for name, t in [("x", x), ("y", y)] + [
+            (n, getattr(p, n)) for n in want]:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"found_cell: {name} must be contiguous and "
+                             "16-byte aligned")
+    if y.dtype != x.dtype or y.device != x.device:
+        raise TypeError("found_cell: x and y differ in dtype or device")
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/found_cell.cu`` on a loaded
+    library: every pointer and the stream as ``c_void_p``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.found_cell_forward.argtypes = [
+        ci, vp, vp, vp, ci, ci, ci, ci, ci,
+        ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ci),
+        ctypes.POINTER(vp), ctypes.c_float, vp]
+    lib.found_cell_forward.restype = ci
+    lib.found_cell_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
+    lib.found_cell_smem_bytes.restype = ctypes.c_size_t
+    lib.found_cell_error_string.argtypes = [ci]
+    lib.found_cell_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from bmnas_tpu_torch.ops.kernels import _build
+        _LIB = bind(_build.load("found_cell"))
+    return _LIB
+
+
+def launch(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
+           p: FoundCellParams, steps_cfg: StepsCfg, multiplier: int,
+           eps: float, stream: Optional[int]) -> torch.Tensor:
+    """Call ``found_cell_forward`` of a bound library on checked tensors
+    and return the output; raises if the launch returns an error."""
+    B, L, C = x.shape
+    S = len(steps_cfg)
+    glu = any(b == 2 for b, _, _ in steps_cfg)
+    smem = lib.found_cell_smem_bytes(L, C, S, multiplier, glu,
+                                     x.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"found_cell: L={L}, C={C}, S={S}, m={multiplier} "
+                         f"needs {smem} B of shared memory > {SMEM_LIMIT}")
+    out = torch.empty_like(x)
+    ints = lambda v: (ctypes.c_int * S)(*v)  # noqa: E731
+    branch = ints([b for b, _, _ in steps_cfg])
+    src_x = ints([ix if sx else -1 for _, (sx, ix), _ in steps_cfg])
+    src_y = ints([iy if sy else -1 for _, _, (sy, iy) in steps_cfg])
+    ptrs = (ctypes.c_void_p * 10)(*[
+        None if t is None else t.data_ptr() for t in p.tensors()])
+    dtype_code = 0 if x.dtype == torch.float32 else 1
+    rc = lib.found_cell_forward(
+        dtype_code, x.data_ptr(), y.data_ptr(), out.data_ptr(),
+        B, L, C, S, multiplier, branch, src_x, src_y, ptrs,
+        float(eps), stream)
+    if rc != 0:
+        raise RuntimeError("found_cell kernel launch failed: "
+                           + lib.found_cell_error_string(rc).decode())
+    return out
+
+
+def found_node_cell_fused(x: torch.Tensor, y: torch.Tensor,
+                          p: FoundCellParams, steps_cfg: StepsCfg,
+                          multiplier: int = 1, eps: float = 1e-5
+                          ) -> torch.Tensor:
+    """The found cell: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors. No fallback: a CUDA call launches or raises."""
+    if x.device.type == "cpu":
+        return found_node_cell_reference(x, y, p, steps_cfg, multiplier, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"found_cell: no kernel for device {x.device}")
+    _check(x, y, p, steps_cfg, multiplier)
+    if x.shape[0] == 0:
+        return torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        out = launch(_lib(), x, y, p, steps_cfg, multiplier, eps,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    LAUNCHES["found_cell"] += 1
+    return out
+
+
+def stack_step_params(steps: Sequence[dict], L: int, C: int,
+                      like: torch.Tensor) -> dict:
+    """Stack per-step folded tensors into FoundCellParams fields; a step's
+    missing branch tensors are zeros. ``steps[i]`` may hold ln1_scale,
+    ln1_bias, glu_kernel, glu_bias, cfc_kernel, cfc_bias."""
+    shapes = {"ln1_scale": (L, C), "ln1_bias": (L, C),
+              "glu_kernel": (2 * C, 2 * C), "glu_bias": (2 * C,),
+              "cfc_kernel": (2 * C, C), "cfc_bias": (C,)}
+    z = lambda s: torch.zeros(s, dtype=like.dtype, device=like.device)  # noqa
+    return {k: torch.stack([st.get(k, z(s)) for st in steps])
+            for k, s in shapes.items()}

@@ -1,0 +1,161 @@
+"""Auxiliary layers: reshape-input projections, poolings, norms.
+
+Port of ``bmnas_tpu/ops/layers.py``. Public layout stays channels-last:
+``(B, L, C)`` sequences and ``(B, H, W, C)`` maps. Submodules carry the
+flax scope names (``Dense_0``, ``BatchNorm_0``) so that
+``utils/convert.py`` maps weights mechanically.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def adaptive_max_pool_1d(x: torch.Tensor, out_size: int, axis: int
+                         ) -> torch.Tensor:
+    """torch AdaptiveMaxPool1d along any axis (the reference's semantics)."""
+    x = x.movedim(axis, -1)
+    lead = x.shape[:-1]
+    out = F.adaptive_max_pool1d(x.reshape(-1, 1, x.shape[-1]), out_size)
+    return out.reshape(*lead, out_size).movedim(-1, axis)
+
+
+def adaptive_max_pool_2d(x: torch.Tensor, out_hw: Tuple[int, int]
+                         ) -> torch.Tensor:
+    """Adaptive max pool over the spatial axes of an NHWC map."""
+    out = F.adaptive_max_pool2d(x.permute(0, 3, 1, 2), out_hw)
+    return out.permute(0, 2, 3, 1)
+
+
+def interpolate_nearest_1d(x: torch.Tensor, out_size: int, axis: int
+                           ) -> torch.Tensor:
+    """F.interpolate(mode='nearest') along one axis: idx = floor(i*I/O)."""
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    idx = torch.arange(out_size, device=x.device) * in_size // out_size
+    return x.index_select(axis, idx)
+
+
+def layer_norm_2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Per-sample LayerNorm over the last two axes, biased variance."""
+    mean = x.mean(dim=(-2, -1), keepdim=True)
+    var = (x - mean).square().mean(dim=(-2, -1), keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * weight + bias
+
+
+class LayerNorm2D(nn.Module):
+    """LayerNorm over the last two axes with a per-position (L, C) affine
+    (``nn.LayerNorm([C, L])`` of the reference on its (B, C, L) layout)."""
+
+    def __init__(self, L: int, C: int, eps: float = 1e-5, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(L, C, **kw))
+        self.bias = nn.Parameter(torch.zeros(L, C, **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_2d(x, self.weight, self.bias, self.eps)
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the last (channel) axis, torch-default hyperparameters
+    (momentum 0.1, eps 1e-5). Every leading axis is a batch axis, as with
+    flax ``nn.BatchNorm(axis=-1)``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = x.shape
+        return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
+
+
+class GlobalPooling2D(nn.Module):
+    """Mean over the spatial axes: (B, H, W, C) -> (B, C)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(1, 2))
+
+
+class Maxout(nn.Module):
+    """Linear(d -> features*pool_size), then max over pool_size. The output
+    is viewed as (features, pool_size), the reference's order."""
+
+    def __init__(self, in_features: int, features: int, pool_size: int,
+                 device=None, dtype=None):
+        super().__init__()
+        self.features = features
+        self.pool_size = pool_size
+        self.Dense_0 = nn.Linear(in_features, features * pool_size,
+                                 device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.Dense_0(x)
+        out = out.reshape(*out.shape[:-1], self.features, self.pool_size)
+        return out.amax(dim=-1)
+
+
+class _ProjectBNReLU(nn.Module):
+    """Linear over C -> BatchNorm -> ReLU -> dropout."""
+
+    def __init__(self, C_in: int, C: int, drpt: float, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.Dense_0 = nn.Linear(C_in, C, **kw)
+        self.BatchNorm_0 = BatchNorm(C, **kw)
+        self.dropout = nn.Dropout(drpt)
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.BatchNorm_0(self.Dense_0(x)))
+        return self.dropout(x)
+
+
+class ReshapeInputLayer(_ProjectBNReLU):
+    """Project a ``(B, T, ..., C_in)`` feature map to ``(B, L, C)``: max over
+    the flattened spatial axes, adaptive max pool T -> L, nearest
+    interpolation (identity after the pool), then the projection."""
+
+    def __init__(self, C_in: int, C: int, L: int, drpt: float, device=None,
+                 dtype=None):
+        super().__init__(C_in, C, drpt, device=device, dtype=dtype)
+        self.L = L
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C_in = x.shape[0], x.shape[-1]
+        if x.dim() == 2:
+            x = x[:, None, :]
+        x = x.reshape(B, x.shape[1], -1, C_in).amax(dim=2)
+        x = adaptive_max_pool_1d(x, self.L, axis=1)
+        x = interpolate_nearest_1d(x, self.L, axis=1)
+        return self.project(x)
+
+
+class ReshapeInputLayerMMIMDB(_ProjectBNReLU):
+    """MM-IMDB variant: pool the spatial axes to sqrt(L) x sqrt(L) bins.
+
+    ``(B, C_in)`` vectors are 1x1 maps, so pooling replicates them into all
+    L bins, as the reference's AdaptiveMaxPool2d does on a (C, 1, 1) map.
+    """
+
+    def __init__(self, C_in: int, C: int, L: int, drpt: float, device=None,
+                 dtype=None):
+        super().__init__(C_in, C, drpt, device=device, dtype=dtype)
+        self.pool_size = int(math.sqrt(L * 1.0))
+        if self.pool_size * self.pool_size != L:
+            raise ValueError(f"L must be a perfect square, got {L}")
+        self.L = L
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C_in = x.shape[0], x.shape[-1]
+        if x.dim() == 2:
+            x = x[:, None, None, :]
+        elif x.dim() == 3:
+            x = x[:, :, None, :]
+        x = adaptive_max_pool_2d(x, (self.pool_size, self.pool_size))
+        return self.project(x.reshape(B, self.L, C_in))

@@ -1,0 +1,71 @@
+"""Found-net inference serving.
+
+Port of ``bmnas_tpu/serving.py`` (FoundNetServer, load_server): a found
+task net in eval mode on one device, fp32 or bf16 weights and activations
+(logits returned in fp32), fixed-size batches with a ``mask``, valid rows
+trimmed on return. Every FoundNodeCell folds its BatchNorms once, when the
+server is built; on CUDA each cell then runs the found-cell kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from bmnas_tpu_torch.device import resolve_device
+from bmnas_tpu_torch.models.foundnet import FoundNodeCell
+
+
+class FoundNetServer:
+    """Wraps a found task net + trained weights for batched inference."""
+
+    def __init__(self, model: nn.Module,
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 dtype: torch.dtype = torch.float32, fused: bool = False,
+                 device=None):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        for m in model.modules():
+            if isinstance(m, FoundNodeCell) and fused:
+                m._check_hostable()
+                m.fused_eval = True
+        self.model = model.to(device=self.device, dtype=dtype).eval()
+        for m in self.model.modules():
+            if isinstance(m, FoundNodeCell) and m._folded is None and (
+                    m.fused_eval or self.device.type == "cuda"):
+                m.fold()
+        self.input_keys = getattr(model, "INPUT_KEYS", None)
+
+    def _inputs(self, batch: Mapping[str, np.ndarray]
+                ) -> Dict[str, torch.Tensor]:
+        keys = self.input_keys or [k for k in batch
+                                   if k not in ("label", "mask")]
+        return {k: torch.as_tensor(batch[k]).to(self.device, self.dtype,
+                                                non_blocking=True)
+                for k in keys}
+
+    @torch.inference_mode()
+    def predict(self, batch: Mapping[str, np.ndarray]) -> np.ndarray:
+        """Run one batch; returns host fp32 logits for the valid rows."""
+        logits = self.model(self._inputs(batch)).float().cpu().numpy()
+        if "mask" in batch:
+            return logits[:int(np.asarray(batch["mask"]).sum())]
+        return logits
+
+    def predict_stream(self, batches: Iterable[Mapping[str, np.ndarray]]
+                       ) -> np.ndarray:
+        """Run an iterator of batches; returns the concatenated logits."""
+        return np.concatenate([self.predict(b) for b in batches], axis=0)
+
+
+def load_server(snapshot_path: str, model: nn.Module,
+                dtype: torch.dtype = torch.float32, fused: bool = False,
+                device=None) -> FoundNetServer:
+    """A server from a ``best_model.pt`` snapshot (utils.checkpoint)."""
+    from bmnas_tpu_torch.utils.checkpoint import load_model
+    return FoundNetServer(model, load_model(snapshot_path), dtype=dtype,
+                          fused=fused, device=device)

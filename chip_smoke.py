@@ -1,0 +1,485 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out REPORT.json]
+
+Run from the repository root. It imports nothing of JAX and nothing of the
+JAX package. Phases, each of which fails the run (exit code != 0, no result
+line) on any error:
+
+1. device: the ``nvidia-smi`` name/power-limit line and the torch device.
+2. build: every CUDA kernel of the port, from ``bmnas_tpu_torch/csrc``, one
+   ``nvcc`` per source, all started together.
+3. kernel vs plain: the found-cell kernel against its plain PyTorch version
+   on the card, for seven cell configurations at L=16, C=192, B in {8, 37, 96},
+   in fp32 (tolerance 1e-4 abs + 1e-4 rel) and bf16 (2e-2 abs + 2e-2 rel;
+   both sides round the same fp32 result to bf16 once). Times (CUDA
+   events, median, L2 flushed before each launch) at B=8 and B=96: device
+   time (``ms``, host dispatch hidden behind a sleep kernel) and call time
+   (``call_ms``, host dispatch included), for the kernel and the plain
+   version, beside each configuration's bound (the larger of bytes /
+   3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic type).
+4. serve: a synthetic MM-IMDB test split (36 samples of 160x256 images: four
+   full batches of 8 and one ragged batch of 4) and a found experiment dir
+   (genotype pickle + seeded snapshot), served through the port's CLI
+   ``bmnas_tpu_torch.cli.serve.main_serve`` at the full MM-IMDB width
+   (C=192, L=16, steps=2, 6 input nodes, 23 genres) in fp32 and in bf16.
+   The kernel must launch exactly twice per batch (one launch per found
+   cell), the logits must be finite, and the weighted-F1 line must be
+   printed. One batch's logits on CUDA and on the CPU must agree within
+   1e-3 (TF32 off for both matmuls and convolutions). Then a breakdown of
+   one request of 8 in fp32 and bf16: host time to read the batch, host
+   time of ``predict``, and each top-level layer's device-time span.
+5. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
+   ``{"ok": true, "device": {...}}`` as the last line.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import math
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+L, C = 16, 192
+# (node_steps, node_multiplier, inner ops) of the kernel-vs-plain phase
+CONFIGS = [
+    (1, 1, ("Sum",)),
+    (1, 1, ("ScaleDotAttn",)),
+    (1, 1, ("LinearGLU",)),
+    (1, 1, ("ConcatFC",)),
+    (2, 2, ("ConcatFC", "ScaleDotAttn")),
+    (2, 2, ("LinearGLU", "LinearGLU")),
+    (3, 1, ("ScaleDotAttn", "Sum", "ConcatFC")),
+]
+TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel vs plain
+# ---------------------------------------------------------------------------
+
+def chain_edges(node_steps):
+    return tuple(e for i in range(node_steps)
+                 for e in (("skip", i), ("skip", i + 1)))
+
+
+def random_params(gen, S, m, dtype, device):
+    from bmnas_tpu_torch.ops.kernels.node_mixed import FoundCellParams
+
+    def r(*shape, k=1.0):
+        return (torch.randn(*shape, generator=gen) * k).to(device, dtype)
+    w = 1.0 / math.sqrt(2 * C)
+    return FoundCellParams(
+        ln1_scale=r(S, L, C), ln1_bias=r(S, L, C),
+        glu_kernel=r(S, 2 * C, 2 * C, k=w), glu_bias=r(S, 2 * C, k=0.1),
+        cfc_kernel=r(S, 2 * C, C, k=w), cfc_bias=r(S, C, k=0.1),
+        oc_kernel=r(m * C, C, k=1.0 / math.sqrt(m * C)) if m != 1 else None,
+        oc_bias=r(C, k=0.1) if m != 1 else None,
+        ln2_scale=r(L, C), ln2_bias=r(L, C))
+
+
+def cell_work(B, steps_cfg, m, itemsize):
+    """(bytes, FLOP) one call must move and compute: x, y and out once, each
+    weight the configuration uses once; GEMMs at 2 FLOP per multiply-add,
+    elementwise work at one FLOP per element and operation."""
+    LC = L * C
+    nbytes = 3 * B * LC + 2 * LC                      # x, y, out; ln2
+    flops = B * (LC + 8 * LC)                         # residual + LN
+    for branch, _, _ in steps_cfg:
+        if branch == 0:
+            flops += B * LC
+        elif branch == 1:
+            nbytes += 2 * LC
+            flops += B * (4 * L * L * C + 5 * L * L + 8 * LC)
+        elif branch == 2:
+            nbytes += 4 * C * C + 2 * C
+            flops += B * (2 * L * 2 * C * 2 * C + 6 * LC)
+        else:
+            nbytes += 2 * C * C + C
+            flops += B * (2 * L * 2 * C * C + 2 * LC)
+    if m != 1:
+        nbytes += m * C * C + C
+        flops += B * (2 * L * m * C * C + 2 * LC)
+    return nbytes * itemsize, flops
+
+
+def bound_ms(B, steps_cfg, m, itemsize):
+    nbytes, flops = cell_work(B, steps_cfg, m, itemsize)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_ms(fn, flush, hide_host, iters=30, warmup=3):
+    """Median time of one call by CUDA events, L2 flushed before each call
+    (the serving path reaches the cell after the VGG stack has run through
+    L2). ``hide_host``: a sleep kernel keeps the stream busy while the host
+    prepares the call, so the events bracket device time only; without it
+    the time is what a caller waits, host dispatch included."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        if hide_host:
+            torch.cuda._sleep(2_000_000)  # ~1 ms at 2 GHz
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_phase(device):
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    from bmnas_tpu_torch.ops.kernels.node_mixed import (
+        found_cell_steps_cfg,
+        found_node_cell_fused,
+        found_node_cell_reference,
+    )
+    gen = torch.Generator().manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    rows = []
+    for node_steps, m, ops in CONFIGS:
+        cfg = found_cell_steps_cfg(chain_edges(node_steps), ops)
+        for dtype in (torch.float32, torch.bfloat16):
+            p = random_params(gen, node_steps, m, dtype, device)
+            for B in (8, 37, 96):
+                x = torch.randn(B, L, C, generator=gen).to(device, dtype)
+                y = torch.randn(B, L, C, generator=gen).to(device, dtype)
+                before = LAUNCHES["found_cell"]
+                got = found_node_cell_fused(x, y, p, cfg, m)
+                torch.cuda.synchronize()
+                launched = LAUNCHES["found_cell"] - before
+                want = found_node_cell_reference(x, y, p, cfg, m)
+                g, w = got.float(), want.float()
+                err = (g - w).abs()
+                tol = TOLS[dtype]
+                ok = bool(torch.isfinite(g).all()) and bool(
+                    (err <= tol + tol * w.abs()).all())
+                row = {"ops": "+".join(ops), "node_steps": node_steps,
+                       "m": m, "B": B, "dtype": str(dtype).split(".")[-1],
+                       "launches": launched,
+                       "max_abs_err": float(err.max()),
+                       "tolerance": tol, "ok": ok}
+                if B in (8, 96):
+                    kern = lambda: found_node_cell_fused(  # noqa: E731
+                        x, y, p, cfg, m)
+                    plain = lambda: found_node_cell_reference(  # noqa: E731
+                        x, y, p, cfg, m)
+                    row["ms"] = time_ms(kern, flush, True)
+                    row["plain_ms"] = time_ms(plain, flush, True)
+                    row["call_ms"] = time_ms(kern, flush, False)
+                    row["plain_call_ms"] = time_ms(plain, flush, False)
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        B, cfg, m, x.element_size())
+                rows.append(row)
+                log("  found_cell {ops:<30} B={B:<3} {dtype:<8} "
+                    "max_abs_err={max_abs_err:.3g} ok={ok}".format(**row)
+                    + ("  ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                       "bound_ms={bound_ms:.5f} call_ms={call_ms:.4f} "
+                       "plain_call_ms={plain_call_ms:.4f}".format(**row)
+                       if "ms" in row else ""))
+                if not ok or launched != 1:
+                    raise AssertionError(f"found_cell disagrees with its "
+                                         f"plain version: {row}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve
+# ---------------------------------------------------------------------------
+
+SERVE_CFG = dict(C=C, L=L, steps=2, multiplier=2, node_steps=1,
+                 node_multiplier=1, num_input_nodes=6, num_keep_edges=2,
+                 num_outputs=23, drpt=0.1)
+SERVE_SAMPLES, BATCH = 36, 8
+
+
+def serve_genotype():
+    from bmnas_tpu_torch.genotype import Genotype, StepGenotype
+    return Genotype(
+        edges=[("skip", 0), ("skip", 4), ("skip", 2), ("skip", 5)],
+        concat=[6, 7],
+        steps=[StepGenotype([("skip", 0), ("skip", 1)], ["ScaleDotAttn"],
+                            [2]),
+               StepGenotype([("skip", 1), ("skip", 0)], ["LinearGLU"], [2])])
+
+
+def write_experiment(root):
+    """Synthetic test split + found experiment dir with a seeded snapshot."""
+    from bmnas_tpu_torch.data.synthetic import make_mmimdb_synthetic
+    from bmnas_tpu_torch.genotype import save_genotype
+    from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
+    from bmnas_tpu_torch.utils.checkpoint import save_model
+
+    data = os.path.join(root, "data")
+    make_mmimdb_synthetic(data, image_hw=(160, 256), seed=0,
+                          counts={"train": 0, "dev": 0,
+                                  "test": SERVE_SAMPLES})
+    best = os.path.join(root, "exp", "best")
+    os.makedirs(best)
+    geno = serve_genotype()
+    save_genotype(geno, os.path.join(best, "best_genotype.pkl"))
+    torch.manual_seed(0)
+    model = FoundImageTextNet.from_genotype(geno, device="cpu", **SERVE_CFG)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, torch.nn.Conv2d):  # keep VGG activations O(1)
+                mod.weight.normal_(0.0, math.sqrt(2.0 / (9 * mod.in_channels)),
+                                   generator=gen)
+                mod.bias.zero_()
+            if isinstance(mod, torch.nn.BatchNorm1d):  # exercise folding
+                mod.running_mean.normal_(0.0, 0.1, generator=gen)
+                mod.running_var.uniform_(0.5, 1.5, generator=gen)
+                mod.weight.uniform_(0.5, 1.5, generator=gen)
+                mod.bias.normal_(0.0, 0.1, generator=gen)
+    save_model(os.path.join(best, "best_model.pt"), model)
+    return data, os.path.join(root, "exp")
+
+
+def serve_once(data, exp, bf16):
+    from bmnas_tpu_torch.cli.serve import main_serve
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    argv = ["--task", "mmimdb", "--eval_exp_dir", exp, "--datadir", data,
+            "--batchsize", str(BATCH), "--num_workers", "4"] + (
+                ["--bf16"] if bf16 else [])
+    before = LAUNCHES["found_cell"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_serve(argv)
+    printed = buf.getvalue()
+    sys.stdout.write(printed)
+    launched = LAUNCHES["found_cell"] - before
+    line = json.loads(printed.strip().splitlines()[-1])
+    if line != result or line["metric"] != "weighted_f1":
+        raise AssertionError(f"serve printed {line!r}, returned {result!r}")
+    n_batches = -(-SERVE_SAMPLES // BATCH)
+    checks = {
+        "samples": result["samples"] == SERVE_SAMPLES,
+        "batches": result["batches"] == n_batches,
+        "launches == 2 x batches": launched == 2 * result["batches"],
+        "finite logits": result["logits_finite"],
+        "samples_per_sec": result["samples_per_sec"] > 0,
+        "f1 in [0, 1]": 0.0 <= result["value"] <= 1.0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"serve (bf16={bf16}) failed {checks}: "
+                             f"{result}, launches={launched}")
+    return dict(result, launches=launched)
+
+
+def cuda_vs_cpu(data, exp):
+    """One batch's logits: the port on CUDA against the port on the CPU."""
+    from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
+    from bmnas_tpu_torch.serving import load_server
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    geno = load_genotype(os.path.join(exp, "best", "best_genotype.pkl"))
+    snap = os.path.join(exp, "best", "best_model.pt")
+    batch = next(iter(MMIMDBDataset(data, "test", num_workers=4)
+                      .batches(BATCH, shuffle=False)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = FoundImageTextNet.from_genotype(geno, device=dev,
+                                                **SERVE_CFG)
+        out[dev] = load_server(snap, model, device=dev).predict(batch)
+    diff = float(np.abs(out["cuda"] - out["cpu"]).max())
+    if not (np.isfinite(out["cuda"]).all() and diff <= 1e-3):
+        raise AssertionError(f"CUDA vs CPU logits differ by {diff}")
+    return {"max_abs_diff": diff, "logits_abs_max":
+            float(np.abs(out["cpu"]).max()), "tolerance": 1e-3}
+
+
+def serve_breakdown(data, exp, dtype, iters=20):
+    """Where one request's time goes: the host time to read one batch from
+    disk, the host time of ``FoundNetServer.predict`` on it (upload, forward,
+    logits back), and the device-time span of each top-level layer of the
+    found net (CUDA events in forward hooks), medians over ``iters``."""
+    from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
+    from bmnas_tpu_torch.serving import load_server
+    geno = load_genotype(os.path.join(exp, "best", "best_genotype.pkl"))
+    model = FoundImageTextNet.from_genotype(geno, device="cuda", **SERVE_CFG)
+    server = load_server(os.path.join(exp, "best", "best_model.pt"), model,
+                         dtype=dtype, device="cuda")
+    dataset = MMIMDBDataset(data, "test", num_workers=4)
+    t0 = time.perf_counter()
+    batches = list(dataset.batches(BATCH, shuffle=False))
+    load_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    parts = (["imagenet", "textnet"] + [f"reshape_{i}" for i in model.used]
+             + ["fusion_net", "central_classifier"])
+    spans = {n: [] for n in parts}
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+    hooks = []
+    for n in parts:
+        mod = server.model.get_submodule(n)
+        hooks.append(mod.register_forward_pre_hook(
+            lambda m, a, n=n: spans[n].append([event()])))
+        hooks.append(mod.register_forward_hook(
+            lambda m, a, o, n=n: spans[n][-1].append(event())))
+    request_ms = []
+    for _ in range(iters + 3):
+        t = time.perf_counter()
+        server.predict(batches[0])
+        request_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    layer_ms = {n: statistics.median(a.elapsed_time(b) for a, b in s[3:])
+                for n, s in spans.items()}
+    request = statistics.median(request_ms[3:])
+    return {"dtype": str(dtype).split(".")[-1], "batch": BATCH,
+            "load_ms_per_batch": load_ms, "predict_ms": request,
+            "layer_device_ms": layer_ms,
+            "other_ms": request - sum(layer_ms.values())}
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write the full measurements as JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this test runs on the GPU only",
+              file=sys.stderr)
+        return 1
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES, _build, reset_launches
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[1 device] {smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {kind}")
+    report = {"nvidia_smi": smi, "device": kind, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+
+    t0 = time.perf_counter()
+    names = sorted(LAUNCHES)
+    _build.build_all(names)
+    for n in names:
+        _build.load(n)
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[2 build] {names} in {report['build_s']:.1f} s")
+    for n in names:
+        for line in _build.build_log(n).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {n}: {line.strip()}")
+
+    log("[3 kernel vs plain] L=16 C=192")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = kernel_phase(device)
+    report["found_cell"] = rows
+
+    log("[4 serve] MM-IMDB found net, C=192 L=16, 160x256 images, "
+        f"{SERVE_SAMPLES} samples in batches of {BATCH}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        data, exp = write_experiment(tmp)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for convs
+        reset_launches()
+        serve = {"fp32": serve_once(data, exp, bf16=False),
+                 "bf16": serve_once(data, exp, bf16=True)}
+        main_path_launches = dict(LAUNCHES)
+        serve["cuda_vs_cpu"] = cuda_vs_cpu(data, exp)
+        log(f"  cuda vs cpu logits: {serve['cuda_vs_cpu']}")
+        torch.backends.cudnn.allow_tf32 = True
+        serve["breakdown"] = [serve_breakdown(data, exp, dt)
+                              for dt in (torch.float32, torch.bfloat16)]
+        for b in serve["breakdown"]:
+            log("  breakdown {dtype}: load {load_ms_per_batch:.3f} ms/batch,"
+                " predict {predict_ms:.3f} ms, other {other_ms:.3f} ms, "
+                "layers (device) ".format(**b) + ", ".join(
+                    f"{k} {v:.4f}" for k, v in b["layer_device_ms"].items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["serve"] = serve
+    report["main_path_launches"] = main_path_launches
+    for n in names:
+        if main_path_launches[n] == 0:
+            raise AssertionError(f"kernel {n} never launched on the main path")
+
+    # the kernels line: the served genotype's two cells at B=8, fp32
+    served = [r for r in rows if r["B"] == 8 and r["dtype"] == "float32"
+              and r["node_steps"] == 1 and r["ops"] in ("ScaleDotAttn",
+                                                        "LinearGLU")]
+    mean = lambda k: sum(r[k] for r in served) / len(served)  # noqa: E731
+    fp32_err = max(r["max_abs_err"] for r in rows if r["dtype"] == "float32")
+    bf16_err = max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+    kernels = {"kernels": [{
+        "name": "found_cell",
+        "route": "cuda",
+        "source": "bmnas_tpu_torch/csrc/found_cell.cu",
+        "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:366",
+        "launches": main_path_launches["found_cell"],
+        "max_abs_err": fp32_err,
+        "max_abs_err_bf16": bf16_err,
+        "ms": mean("ms"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in served)
+                     else "operations"),
+        "library_ms": None,
+        "call_ms": mean("call_ms"),
+        "plain_call_ms": mean("plain_call_ms"),
+    }]}
+    report["kernels"] = kernels["kernels"]
+    report["seconds"] = time.perf_counter() - t_start
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    log(f"[5 result] {report['seconds']:.1f} s"
+        + (f"; full report in {args.out}" if args.out else ""))
+    print(json.dumps(kernels), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
