@@ -1,16 +1,38 @@
 """Shared CLI plumbing: the reference's common flag set.
 
 Port of the ``add_common_flags`` / ``model_kwargs_from_args`` /
-``fail_fast_checks`` subset of ``bmnas_tpu/cli/common.py``. The JAX
-package's TPU-specific flags (device data cache, dispatch fusion, H2D
-streams, profiler, grain backend) have no counterpart here yet. Both
-spellings ``--use_dataparallel`` / ``--parallel`` are accepted as in the
-reference, but the port runs on one device and refuses the flag.
+``fail_fast_checks`` / ``_stage_seed`` subset of
+``bmnas_tpu/cli/common.py``. The JAX package's flags whose machinery is not
+ported yet are parsed and refused with the ROADMAP.md item that brings
+them (:data:`NOT_PORTED`), never ignored. Both spellings
+``--use_dataparallel`` / ``--parallel`` are accepted as in the reference,
+but the port runs on one device and refuses the flag.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import zlib
+
+# flag -> (is it set?, the ROADMAP.md item that ports it)
+NOT_PORTED = {
+    "--unrolled": (lambda a: a.unrolled,
+                   "Queue 1 item 3, search extras"),
+    "--resume": (lambda a: a.resume is not None,
+                 "Queue 1 item 3, search extras"),
+    "--steps_per_dispatch": (lambda a: a.steps_per_dispatch != 1,
+                             "Queue 1 item 3, search extras"),
+    "--bf16_backbone": (lambda a: a.bf16_backbone,
+                        "Queue 1 item 3, search extras"),
+    "--profile_dir": (lambda a: a.profile_dir is not None,
+                      "Queue 1 item 3, search extras"),
+    "--device_data_cache": (lambda a: a.device_data_cache,
+                            "Queue 1 item 6, data-path infrastructure"),
+    "--data_backend grain": (lambda a: a.data_backend == "grain",
+                             "Queue 1 item 6, data-path infrastructure"),
+    "--parallel": (lambda a: a.parallel,
+                   "Queue 1 item 7, multi-device"),
+}
 
 
 def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
@@ -67,6 +89,25 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
                         help='cosine annealing epochs Ti')
     parser.add_argument('--Tm', type=int, default=2,
                         help='cosine annealing multiplier Tm')
+    # flags of the JAX package that the port parses and refuses
+    # (NOT_PORTED)
+    parser.add_argument('--resume', type=str, default=None,
+                        help='(not ported yet) resume from a checkpoint')
+    parser.add_argument('--profile_dir', type=str, default=None,
+                        help='(not ported yet) profiler trace directory')
+    parser.add_argument('--bf16_backbone', action='store_true',
+                        default=False,
+                        help='(not ported yet) bf16 image backbone')
+    parser.add_argument('--device_data_cache', action='store_true',
+                        default=False,
+                        help='(not ported yet) device-resident dataset')
+    parser.add_argument('--steps_per_dispatch', type=int, default=1,
+                        help='(not ported yet) steps fused per dispatch')
+    parser.add_argument('--unrolled', action='store_true', default=False,
+                        help='(not ported yet) second-order arch steps')
+    parser.add_argument('--data_backend', type=str, default='threads',
+                        choices=['threads', 'grain'],
+                        help='host input pipeline (grain: not ported yet)')
 
 
 def model_kwargs_from_args(args) -> dict:
@@ -79,11 +120,17 @@ def model_kwargs_from_args(args) -> dict:
 
 
 def fail_fast_checks(args) -> None:
-    """Validate host-side arguments before any model is built."""
+    """Validate host-side arguments before any model is built; refuse the
+    flags the port does not have yet."""
+    for flag, (is_set, item) in NOT_PORTED.items():
+        if is_set(args):
+            raise SystemExit(f"{flag}: not ported yet (ROADMAP.md {item})")
     datadir = getattr(args, "datadir", None)
     if datadir and not os.path.isdir(datadir):
         raise SystemExit(f"--datadir: directory not found: {datadir}")
-    if getattr(args, "parallel", False):
-        raise SystemExit("--parallel/--use_dataparallel: the port runs on "
-                         "one device (multi-device serving is a later "
-                         "ROADMAP item)")
+
+
+def _stage_seed(stage: str) -> int:
+    """Deterministic per-stage seed term (Python's hash() is randomized per
+    process)."""
+    return zlib.crc32(stage.encode()) % 97

@@ -1,9 +1,10 @@
-"""MM-IMDB backbones and the found task net.
+"""MM-IMDB backbones, the searchable supernet task net and the found one.
 
 Port of ``bmnas_tpu/models/mmimdb.py`` (GPVGG, MaxOutMLP,
-FoundImageTextNet). Images come in NHWC as in the reference; the VGG stack
-runs in NCHW on cuDNN and hands its taps back NHWC, so the reshape layers
-see the reference's layout.
+SearchableImageTextNet, FoundImageTextNet, MMIMDB_FROZEN_PREFIXES). Images
+come in NHWC as in the reference; the VGG stack runs in NCHW on cuDNN and
+hands its taps back NHWC, so the reshape layers see the reference's
+layout.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 
 from bmnas_tpu_torch import genotype as G
 from bmnas_tpu_torch.models.foundnet import FoundFusionNetwork, _freeze
+from bmnas_tpu_torch.models.supernet import ArchParams, FusionNetwork
 from bmnas_tpu_torch.ops.layers import (
     BatchNorm,
     GlobalPooling2D,
@@ -91,6 +93,46 @@ class MaxOutMLP(nn.Module):
         o3 = self.op3(self.dropout(self.bn1(o1)))
         o5 = self.hid2val(self.dropout(self.bn2(o3)))
         return o1, o3, o5
+
+
+# Backbone submodules the search's weight optimizer leaves out (the
+# reference's central_params(): reshape layers, fusion net and classifier
+# only).
+MMIMDB_FROZEN_PREFIXES = ("imagenet", "textnet")
+
+
+class SearchableImageTextNet(nn.Module):
+    """Supernet task model: both backbones, six reshape layers (four image
+    taps, two text taps), the fusion supernet and the central classifier.
+    ``forward(batch, arch)`` takes the arch tensors from outside."""
+
+    def __init__(self, C: int, L: int, steps: int, multiplier: int,
+                 node_steps: int, node_multiplier: int, num_input_nodes: int,
+                 num_keep_edges: int, num_outputs: int, drpt: float,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.imagenet = GPVGG(num_outputs, **kw)
+        self.textnet = MaxOutMLP(num_outputs, **kw)
+        for i, c_in in enumerate(MMIMDB_C_INS):
+            self.add_module(f"reshape_{i}", ReshapeInputLayerMMIMDB(
+                c_in, C, L, drpt, **kw))
+        self.fusion_net = FusionNetwork(
+            steps=steps, multiplier=multiplier,
+            num_input_nodes=num_input_nodes, num_keep_edges=num_keep_edges,
+            node_steps=node_steps, node_multiplier=node_multiplier, C=C, L=L,
+            drpt=drpt, **kw)
+        self.central_classifier = nn.Linear(L * multiplier * C, num_outputs,
+                                            **kw)
+
+    def forward(self, batch: Dict[str, torch.Tensor], arch: ArchParams
+                ) -> torch.Tensor:
+        image_feats = self.imagenet(batch["image"])
+        text_feats = self.textnet(batch["text"])
+        feats = list(image_feats[:-1]) + list(text_feats[:-1])
+        reshaped = [getattr(self, f"reshape_{i}")(f)
+                    for i, f in enumerate(feats)]
+        return self.central_classifier(self.fusion_net(reshaped, arch))
 
 
 class FoundImageTextNet(nn.Module):

@@ -1,9 +1,15 @@
 """Fusion primitives: outer edge ops and inner two-input fusion ops.
 
 Port of ``bmnas_tpu/ops/fusion_ops.py`` (EdgeOp, SumOp, ScaledDotAttn,
-LinearGLU, ConcatFC, STEP_OPS). Inputs are channels-last ``(B, L, C)``;
-every 1x1 Conv1d of the reference is a Linear over C. Submodules carry the
-flax scope names so weights map one to one.
+LinearGLU, ConcatFC, STEP_OPS, the supernet's NodeMixedOp and
+edge_weighted_sum). Inputs are channels-last ``(B, L, C)``; every 1x1
+Conv1d of the reference is a Linear over C. Submodules carry the flax scope
+names so weights map one to one.
+
+An eval-mode NodeMixedOp on CUDA runs the mixed-op kernel
+(``ops/kernels/node_mixed.node_mixed_op_fused``, ``csrc/node_mixed.cu``)
+with its BatchNorms folded into the dense weights; in train mode, and in
+eval mode on the CPU, it runs the composite of the four inner ops.
 """
 from __future__ import annotations
 
@@ -14,9 +20,25 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from bmnas_tpu_torch.genotype import STEP_STEP_PRIMITIVES
+from bmnas_tpu_torch.ops.kernels.node_mixed import (
+    node_mixed_op_fused,
+    params_from_module,
+)
 from bmnas_tpu_torch.ops.layers import BatchNorm, LayerNorm2D
 
 EDGE_OPS = ["none", "fc_relu", "fc_mish", "skip"]
+
+
+def edge_weighted_sum(states: torch.Tensor, skip_weights: torch.Tensor
+                      ) -> torch.Tensor:
+    """The mixed edge sum over a stack of states: with PRIMITIVES = [none,
+    skip] each mixed edge is ``w_none * 0 + w_skip * x``, so a step's input
+    is one contraction ``einsum('n,nblc->blc', w[:, skip], states)``.
+
+    states: (N, B, L, C); skip_weights: (N,) softmaxed 'skip' column.
+    """
+    return torch.einsum("n,nblc->blc", skip_weights, states)
 
 
 class EdgeOp(nn.Module):
@@ -116,3 +138,32 @@ STEP_OPS: Dict[str, Callable[..., nn.Module]] = {
 STEP_OP_CLASS = {"Sum": "SumOp", "ScaleDotAttn": "ScaledDotAttn",
                  "LinearGLU": "LinearGLU", "ConcatFC": "ConcatFC",
                  "cat_conv_relu": "ConcatFC"}
+
+
+class NodeMixedOp(nn.Module):
+    """gamma-weighted sum of all four inner ops (the supernet's continuous
+    relaxation): ``SumOp_0``, ``ScaledDotAttn_0``, ``LinearGLU_0``,
+    ``ConcatFC_0``.
+
+    Train mode runs the composite. Eval mode runs the mixed-op kernel on
+    CUDA and the composite on the CPU. The kernel takes the BatchNorms
+    folded into the dense weights, folded anew on every eval forward:
+    the search changes the weights and running statistics at every step.
+    """
+
+    def __init__(self, C: int, L: int, drpt: float, device=None, dtype=None):
+        super().__init__()
+        self.branch_names = []
+        for op in STEP_STEP_PRIMITIVES:
+            name = f"{STEP_OP_CLASS[op]}_0"
+            self.add_module(name, STEP_OPS[op](C, L, drpt, device=device,
+                                               dtype=dtype))
+            self.branch_names.append(name)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                weights: torch.Tensor) -> torch.Tensor:
+        if not self.training and x.is_cuda:
+            return node_mixed_op_fused(x, y, weights,
+                                       params_from_module(self))
+        outs = [getattr(self, n)(x, y) for n in self.branch_names]
+        return torch.einsum("k,kblc->blc", weights, torch.stack(outs))

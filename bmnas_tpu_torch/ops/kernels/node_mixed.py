@@ -1,28 +1,41 @@
-"""The found fusion cell in eval mode: a CUDA kernel and its plain version.
+"""The fusion-cell CUDA kernels of the port and their plain versions.
 
-Replaces ``bmnas_tpu/ops/kernels/node_mixed.py::found_node_cell_multi_fused``
-(a Pallas TPU kernel). The kernel is ``bmnas_tpu_torch/csrc/found_cell.cu``;
-its source note says what bounds it on an H100 and how the design answers.
+Two kernels replace the two Pallas TPU kernels of
+``bmnas_tpu/ops/kernels/node_mixed.py``; each source note (under
+``bmnas_tpu_torch/csrc``) says what bounds it on an H100 and how the design
+answers.
 
-* ``found_node_cell_reference``: the plain PyTorch version. The CPU tests
-  hold it against the JAX kernel; ``chip_smoke.py`` holds the CUDA kernel
-  against it on the card.
-* ``found_node_cell_fused``: the wrapper. A CPU tensor takes the plain
-  version; a CUDA tensor launches the kernel or raises.
+* The found cell in eval mode, ``found_node_cell_multi_fused`` ->
+  ``csrc/found_cell.cu``: ``found_node_cell_reference`` is the plain
+  PyTorch version, ``found_node_cell_fused`` the wrapper.
+* The supernet's mixed op in eval mode, ``node_mixed_op_fused`` ->
+  ``csrc/node_mixed.cu``: ``node_mixed_op_reference`` is the plain version,
+  ``node_mixed_op_fused`` the wrapper, ``params_from_module`` folds a
+  ``NodeMixedOp``'s BatchNorms into its dense weights.
 
-Semantics (eval mode, BatchNorms folded into the dense weights, dropout
-off): S chained inner steps, each one static branch over two states picked
-by static skip/none edges (Sum; attention + per-sample LayerNorm; GLU;
-ConcatFC + ReLU), then for ``multiplier != 1`` concat of the last m states
--> out_conv -> ReLU, then ``+ x`` and a per-sample LayerNorm. ``steps_cfg``
-is the JAX kernel's: per step ``(branch, (skip_x, idx_x), (skip_y, idx_y))``.
+A wrapper given a CPU tensor takes the plain version; given a CUDA tensor it
+launches the kernel or raises. The CPU tests hold the plain versions against
+the JAX kernels; ``chip_smoke.py`` holds the CUDA kernels against the plain
+versions on the card.
+
+Found-cell semantics (eval mode, BatchNorms folded into the dense weights,
+dropout off): S chained inner steps, each one static branch over two states
+picked by static skip/none edges (Sum; attention + per-sample LayerNorm;
+GLU; ConcatFC + ReLU), then for ``multiplier != 1`` concat of the last m
+states -> out_conv -> ReLU, then ``+ x`` and a per-sample LayerNorm.
+``steps_cfg`` is the JAX kernel's: per step ``(branch, (skip_x, idx_x),
+(skip_y, idx_y))``.
+
+Mixed-op semantics (eval mode, BatchNorms folded, dropout off):
+``g0 (x + y) + g1 LN(attn(x, y)) + g2 GLU([x|y]) + g3 ReLU(FC([x|y]))`` with
+``gammas`` the four softmaxed branch weights, kept on the device.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -198,15 +211,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
+def _lib(name: str, binder) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built at first use and bound by
+    ``binder``."""
+    if name not in _LIBS:
         from bmnas_tpu_torch.ops.kernels import _build
-        _LIB = bind(_build.load("found_cell"))
-    return _LIB
+        _LIBS[name] = binder(_build.load(name))
+    return _LIBS[name]
 
 
 def launch(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
@@ -254,7 +268,8 @@ def found_node_cell_fused(x: torch.Tensor, y: torch.Tensor,
     if x.shape[0] == 0:
         return torch.empty_like(x)
     with torch.cuda.device(x.device):
-        out = launch(_lib(), x, y, p, steps_cfg, multiplier, eps,
+        out = launch(_lib("found_cell", bind), x, y, p, steps_cfg,
+                     multiplier, eps,
                      torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES["found_cell"] += 1
     return out
@@ -271,3 +286,169 @@ def stack_step_params(steps: Sequence[dict], L: int, C: int,
     z = lambda s: torch.zeros(s, dtype=like.dtype, device=like.device)  # noqa
     return {k: torch.stack([st.get(k, z(s)) for st in steps])
             for k, s in shapes.items()}
+
+
+# ---------------------------------------------------------------------------
+# The supernet's mixed op in eval mode (csrc/node_mixed.cu)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class NodeMixedParams:
+    """Folded eval-mode parameters of one NodeMixedOp; dense weights in
+    (in, out) layout."""
+    ln_scale: torch.Tensor    # (L, C) attention LayerNorm
+    ln_bias: torch.Tensor     # (L, C)
+    glu_kernel: torch.Tensor  # (2C, 2C) BN folded
+    glu_bias: torch.Tensor    # (2C,)
+    cfc_kernel: torch.Tensor  # (2C, C) BN folded
+    cfc_bias: torch.Tensor    # (C,)
+
+    def tensors(self):
+        return [getattr(self, f.name) for f in dataclasses.fields(self)]
+
+    def to(self, *args, **kwargs) -> "NodeMixedParams":
+        return NodeMixedParams(*[t.to(*args, **kwargs).contiguous()
+                                 for t in self.tensors()])
+
+
+def _fold_dense_bn(dense, bn):
+    """(in, out) fp32 kernel and bias of Linear -> eval BatchNorm."""
+    f = lambda t: t.detach().float()  # noqa: E731
+    return fuse_bn_into_dense(f(dense.weight).t(), f(dense.bias),
+                              f(bn.weight), f(bn.bias), f(bn.running_mean),
+                              f(bn.running_var), bn.eps)
+
+
+def params_from_module(op) -> NodeMixedParams:
+    """Counterpart of the JAX ``params_from_flax``: a NodeMixedOp's
+    (``ops.fusion_ops.NodeMixedOp``) two BatchNorms folded into its dense
+    weights, in fp32 and stored in the op's parameter dtype. The result is
+    a copy: it never aliases a parameter."""
+    with torch.no_grad():
+        ln = op.ScaledDotAttn_0.LayerNorm2D_0
+        glu_k, glu_b = _fold_dense_bn(op.LinearGLU_0.Dense_0,
+                                      op.LinearGLU_0.BatchNorm_0)
+        cfc_k, cfc_b = _fold_dense_bn(op.ConcatFC_0.Dense_0,
+                                      op.ConcatFC_0.BatchNorm_0)
+        p = NodeMixedParams(
+            ln_scale=ln.weight.detach().float().clone(),
+            ln_bias=ln.bias.detach().float().clone(),
+            glu_kernel=glu_k, glu_bias=glu_b,
+            cfc_kernel=cfc_k, cfc_bias=cfc_b)
+        return p.to(dtype=ln.weight.dtype)
+
+
+def node_mixed_op_reference(x: torch.Tensor, y: torch.Tensor,
+                            gammas: torch.Tensor, p: NodeMixedParams,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version: fp32 arithmetic, output in x's dtype."""
+    dtype = x.dtype
+    f = lambda t: t.float()  # noqa: E731
+    x, y, g = f(x), f(y), f(gammas)
+    C = x.shape[-1]
+    scores = torch.einsum("blc,bmc->blm", x, y) / math.sqrt(C)
+    a = torch.einsum("blm,bmc->blc", scores.softmax(dim=-1), y)
+    a = layer_norm_2d(a, f(p.ln_scale), f(p.ln_bias), eps)
+    cat = torch.cat([x, y], -1)
+    h = cat @ f(p.glu_kernel) + f(p.glu_bias)
+    glu = h[..., :C] * torch.sigmoid(h[..., C:])
+    c = torch.relu(cat @ f(p.cfc_kernel) + f(p.cfc_bias))
+    return (g[0] * (x + y) + g[1] * a + g[2] * glu + g[3] * c).to(dtype)
+
+
+def _check_mixed(x, y, gammas, p: NodeMixedParams):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"node_mixed: dtype {x.dtype} not in (fp32, bf16)")
+    if x.dim() != 3 or y.shape != x.shape:
+        raise ValueError(f"node_mixed: x {tuple(x.shape)} and y "
+                         f"{tuple(y.shape)} must both be (B, L, C)")
+    if y.dtype != x.dtype or y.device != x.device:
+        raise TypeError("node_mixed: x and y differ in dtype or device")
+    B, L, C = x.shape
+    if C % 8 or C > MAX_C:
+        raise ValueError(f"node_mixed: C={C}, the kernel hosts multiples "
+                         f"of 8 up to {MAX_C}")
+    if (tuple(gammas.shape) != (4,) or gammas.dtype != torch.float32
+            or gammas.device != x.device or not gammas.is_contiguous()):
+        raise ValueError("node_mixed: gammas must be 4 contiguous fp32 "
+                         f"values on {x.device}, got {tuple(gammas.shape)} "
+                         f"{gammas.dtype} on {gammas.device}")
+    want = {"ln_scale": (L, C), "ln_bias": (L, C),
+            "glu_kernel": (2 * C, 2 * C), "glu_bias": (2 * C,),
+            "cfc_kernel": (2 * C, C), "cfc_bias": (C,)}
+    for name, shape in want.items():
+        t = getattr(p, name)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"node_mixed: {name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"node_mixed: {name} is {t.dtype} on "
+                            f"{t.device}, x is {x.dtype} on {x.device}")
+    for name, t in [("x", x), ("y", y)] + [(n, getattr(p, n)) for n in want]:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"node_mixed: {name} must be contiguous and "
+                             "16-byte aligned")
+
+
+def bind_mixed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/node_mixed.cu`` on a loaded
+    library: every pointer and the stream as ``c_void_p``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.node_mixed_forward.argtypes = [
+        ci, vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(vp), ctypes.c_float,
+        vp]
+    lib.node_mixed_forward.restype = ci
+    lib.node_mixed_smem_bytes.argtypes = [ci, ci, ci]
+    lib.node_mixed_smem_bytes.restype = ctypes.c_size_t
+    lib.node_mixed_error_string.argtypes = [ci]
+    lib.node_mixed_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch_mixed(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
+                 gammas: torch.Tensor, p: NodeMixedParams, eps: float,
+                 stream: Optional[int]) -> torch.Tensor:
+    """Call ``node_mixed_forward`` of a bound library on checked tensors
+    and return the output; raises if the launch returns an error."""
+    B, L, C = x.shape
+    smem = lib.node_mixed_smem_bytes(L, C, x.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"node_mixed: L={L}, C={C} needs {smem} B of "
+                         f"shared memory > {SMEM_LIMIT}")
+    out = torch.empty_like(x)
+    ptrs = (ctypes.c_void_p * 6)(*[t.data_ptr() for t in p.tensors()])
+    dtype_code = 0 if x.dtype == torch.float32 else 1
+    rc = lib.node_mixed_forward(
+        dtype_code, x.data_ptr(), y.data_ptr(), gammas.data_ptr(),
+        out.data_ptr(), B, L, C, ptrs, float(eps), stream)
+    if rc != 0:
+        raise RuntimeError("node_mixed kernel launch failed: "
+                           + lib.node_mixed_error_string(rc).decode())
+    return out
+
+
+def node_mixed_op_fused(x: torch.Tensor, y: torch.Tensor,
+                        gammas: torch.Tensor, p: NodeMixedParams,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """The eval-mode mixed op: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. ``x`` and ``y`` may be the same tensor;
+    ``gammas`` stays on the device (no host sync). No fallback: a CUDA call
+    launches or raises. The kernel has no backward, so a CUDA call that
+    would need one raises too."""
+    if x.device.type == "cpu":
+        return node_mixed_op_reference(x, y, gammas, p, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"node_mixed: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, y, gammas] + p.tensors()):
+        raise RuntimeError("node_mixed: the kernel has no backward; call it "
+                           "under torch.no_grad()")
+    _check_mixed(x, y, gammas, p)
+    if x.shape[0] == 0:
+        return torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        out = launch_mixed(_lib("node_mixed", bind_mixed), x, y, gammas, p,
+                           eps,
+                           torch.cuda.current_stream(x.device).cuda_stream)
+    LAUNCHES["node_mixed"] += 1
+    return out

@@ -66,13 +66,32 @@ class LayerNorm2D(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the last (channel) axis, torch-default hyperparameters
-    (momentum 0.1, eps 1e-5). Every leading axis is a batch axis, as with
-    flax ``nn.BatchNorm(axis=-1)``."""
+    """BatchNorm over the last (channel) axis with the JAX package's
+    semantics (flax ``nn.BatchNorm(axis=-1, momentum=0.9)``, eps 1e-5).
+
+    Every leading axis is a batch axis, and every row counts: the padded
+    rows of a final batch are part of the statistics, as in the JAX step.
+    In train mode it normalizes with the biased batch variance and moves
+    the running statistics toward the batch mean and the *biased* batch
+    variance: ``r <- 0.9 r + 0.1 stat`` (torch momentum 0.1). Stock
+    ``nn.BatchNorm1d`` would move ``running_var`` toward the unbiased
+    variance, which drifts eval outputs from the JAX package by n/(n-1).
+    """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
-        return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
+        x = x.reshape(-1, shape[-1])
+        if not self.training:
+            return super().forward(x).reshape(shape)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=0, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return out.reshape(shape)
 
 
 class GlobalPooling2D(nn.Module):

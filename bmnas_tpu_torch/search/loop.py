@@ -1,0 +1,141 @@
+"""Epoch loop of the bilevel search.
+
+Port of the streaming path of ``bmnas_tpu/search/loop.py::run_training``
+for ``status='search'``:
+
+* phases train -> dev every epoch: a weight step on every train batch
+  (the scheduler steps once per batch), an arch step on every dev batch;
+* the NaN-loss escape and the NaN-metric one-extra-epoch failsafe;
+* best-dev tracking: ``<exp>/best/best_model.pt`` (state_dict plus the
+  arch tensors) and ``<exp>/best/best_genotype.pkl``;
+* the genotype plot of every epoch at ``<exp>/architectures/epoch_N``;
+* the reference's log lines ('{phase} Loss: ..., {f1} F1: ...',
+  'Fusion Model Params: N', ...) and a ``metrics.jsonl`` row per phase.
+
+Metric counts stay on the device and cross to the host once a phase. The
+JAX loop's device-cache, frame-pool and ``--steps_per_dispatch`` branches,
+its per-epoch resume checkpoint and found retraining (``status='eval'``)
+are later slices (ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+import copy
+import json
+import math
+import os
+from typing import Callable, Dict
+
+import numpy as np
+
+from bmnas_tpu_torch.genotype import Genotype, save_genotype
+from bmnas_tpu_torch.search.bilevel import StepFunctions, TrainState
+from bmnas_tpu_torch.utils import checkpoint as ckpt
+from bmnas_tpu_torch.utils.metrics import count_parameters, f1_from_counts
+
+
+def _accumulate(total, counts):
+    if total is None:
+        return counts
+    return {k: total[k] + counts[k] for k in total}
+
+
+def _finalize_metric(counts: Dict, f1_type: str, dataset_size: int):
+    host = {k: np.asarray(v.detach().cpu()) for k, v in counts.items()}
+    loss = float(host["loss_sum"]) / dataset_size
+    return loss, f1_from_counts(host, average=f1_type, zero_division=1.0)
+
+
+def _fusion_part(name: str) -> bool:
+    """Top-level submodules counted as 'Fusion Model Params'."""
+    return name.startswith("reshape_") or name == "fusion_net"
+
+
+def run_training(
+    *,
+    task: str,
+    fns: StepFunctions,
+    state: TrainState,
+    scheduler,
+    loaders: Dict[str, Callable],      # phase -> fn(epoch) -> batch iterator
+    dataset_sizes: Dict[str, int],
+    num_epochs: int,
+    f1_type: str,
+    args,
+    logger,
+    plotter,
+    genotype_fn: Callable[[TrainState], Genotype],
+):
+    """Returns (best_dev_f1, best_genotype, state)."""
+    best_metric, best_genotype, best_epoch = 0.0, None, 0
+    best_test_metric, best_test_epoch = 0.0, 0  # search runs no test phase
+
+    failsafe = True
+    cont_overloop = 0
+    while failsafe:
+        for epoch in range(num_epochs):
+            logger.info("Epoch: {}".format(epoch))
+            logger.info("EXP: {}".format(args.save))
+            for phase in ("train", "dev"):
+                counts_total = None
+                for batch in loaders[phase](epoch):
+                    if phase == "dev":
+                        counts = fns.arch_step(state, batch)
+                    else:
+                        counts = fns.weight_step(state, batch,
+                                                 scheduler.step())
+                    counts_total = _accumulate(counts_total, counts)
+                epoch_loss, epoch_metric = _finalize_metric(
+                    counts_total, f1_type, dataset_sizes[phase])
+                logger.info("{} Loss: {:.4f}, {} F1: {:.4f}".format(
+                    phase, epoch_loss, f1_type, epoch_metric))
+                with open(os.path.join(args.save, "metrics.jsonl"),
+                          "a") as mf:
+                    mf.write(json.dumps({
+                        "epoch": epoch, "phase": phase, "loss": epoch_loss,
+                        "metric": epoch_metric,
+                        "metric_name": "%s_f1" % f1_type}) + "\n")
+
+                num_params = sum(
+                    count_parameters(m)
+                    for k, m in state.model.named_children()
+                    if _fusion_part(k))
+                logger.info("Fusion Model Params: {}".format(num_params))
+
+                genotype = genotype_fn(state)
+                logger.info(str(genotype))
+
+                if phase == "train" and math.isnan(epoch_loss):
+                    logger.info("Nan loss during training, escaping")
+                    return best_metric, best_genotype, state
+
+                if phase == "dev" and epoch_metric > best_metric:
+                    best_metric = epoch_metric
+                    best_genotype = copy.deepcopy(genotype)
+                    best_epoch = epoch
+                    best = os.path.join(args.save, "best")
+                    ckpt.save_model(os.path.join(best, "best_model.pt"),
+                                    state.model, state.arch)
+                    save_genotype(best_genotype, os.path.join(
+                        best, "best_genotype.pkl"))
+
+            plotter.plot(genotype,
+                         os.path.join(args.save, "architectures",
+                                      "epoch_{}".format(epoch)),
+                         task=task)
+
+            logger.info("Current best dev {} F1: {}, at training epoch: {}"
+                        .format(f1_type, best_metric, best_epoch))
+            logger.info("Current best test {} F1: {}, at training epoch: {}"
+                        .format(f1_type, best_test_metric, best_test_epoch))
+
+        # NaN-metric failsafe: train one more epoch
+        if math.isnan(best_metric) and num_epochs == 1 and cont_overloop < 1:
+            failsafe = True
+            logger.info("Recording a NaN F1, training for one more epoch.")
+        else:
+            failsafe = False
+        cont_overloop += 1
+
+    if math.isnan(best_metric):
+        best_metric = 0.0
+    return best_metric, best_genotype, state

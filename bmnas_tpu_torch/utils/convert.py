@@ -24,12 +24,18 @@ mechanical:
 
 Repeated inner ops keep flax's per-class counters (``LinearGLU_0``,
 ``LinearGLU_1``) because the port counts the same way; inputs the genotype
-does not reference have no parameters on either side.
+does not reference have no parameters on either side. The supernet's mixed
+ops map the same way (``fusion_net/cell/step_node_0/NodeMixedOp_0/
+LinearGLU_0/Dense_0/kernel`` -> ``fusion_net.cell.step_node_0.
+NodeMixedOp_0.LinearGLU_0.Dense_0.weight``).
+
+``arch_from_jax(arch)`` turns the JAX package's ``alphas``/``betas``/
+``gammas`` arrays into the port's arch tensors.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -85,3 +91,11 @@ def state_dict_from_jax(params: Mapping[str, Any],
         sd[_key(scope, "num_batches_tracked", True)] = torch.tensor(
             0, dtype=torch.long)
     return sd
+
+
+def arch_from_jax(arch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's arch tensors (fp32 leaves on the CPU that require grad)
+    from the JAX package's ``alphas``/``betas``/``gammas`` arrays."""
+    return {k: torch.tensor(np.asarray(arch[k]), dtype=torch.float32)
+            .requires_grad_()
+            for k in ("alphas", "betas", "gammas")}

@@ -58,3 +58,8 @@ def f1_from_counts(counts: Dict[str, object], average: str = "weighted",
         return float(as_np(counts["samples_f1_sum"])) / max(
             float(as_np(counts["count"])), 1.0)
     raise ValueError(f"unknown average {average!r}")
+
+
+def count_parameters(module: torch.nn.Module) -> int:
+    """Number of scalars in a module's parameters."""
+    return sum(p.numel() for p in module.parameters())

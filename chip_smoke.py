@@ -10,33 +10,61 @@ line) on any error:
 1. device: the ``nvidia-smi`` name/power-limit line and the torch device.
 2. build: every CUDA kernel of the port, from ``bmnas_tpu_torch/csrc``, one
    ``nvcc`` per source, all started together.
-3. kernel vs plain: the found-cell kernel against its plain PyTorch version
-   on the card, for seven cell configurations at L=16, C=192, B in {8, 37, 96},
-   in fp32 (tolerance 1e-4 abs + 1e-4 rel) and bf16 (2e-2 abs + 2e-2 rel;
-   both sides round the same fp32 result to bf16 once). Times (CUDA
-   events, median, L2 flushed before each launch) at B=8 and B=96: device
-   time (``ms``, host dispatch hidden behind a sleep kernel) and call time
-   (``call_ms``, host dispatch included), for the kernel and the plain
-   version, beside each configuration's bound (the larger of bytes /
+3. found_cell vs plain: the found-cell kernel against its plain PyTorch
+   version on the card, for seven cell configurations at L=16, C=192, B in
+   {8, 37, 96}, in fp32 (tolerance 1e-4 abs + 1e-4 rel) and bf16 (2e-2 abs
+   + 2e-2 rel; both sides round the same fp32 result to bf16 once). Times
+   (CUDA events, median, L2 flushed before each launch) at B=8 and B=96:
+   device time (``ms``, host dispatch hidden behind a sleep kernel) and
+   call time (``call_ms``, host dispatch included), for the kernel and the
+   plain version, beside each configuration's bound (the larger of bytes /
    3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic type).
-4. serve: a synthetic MM-IMDB test split (36 samples of 160x256 images: four
+4. node_mixed vs plain: the supernet's mixed-op kernel against its plain
+   version at L=16, C=192, B in {8, 37, 96}, fp32 and bf16 (the same
+   tolerances), with softmaxed random branch weights and each of the four
+   one-hot ones, for x and y two tensors and one tensor. Times as in
+   phase 3 at B=8 and B=96 for the supernet's case (x is y, softmaxed
+   weights).
+5. serve: a synthetic MM-IMDB test split (36 samples of 160x256 images: four
    full batches of 8 and one ragged batch of 4) and a found experiment dir
    (genotype pickle + seeded snapshot), served through the port's CLI
    ``bmnas_tpu_torch.cli.serve.main_serve`` at the full MM-IMDB width
    (C=192, L=16, steps=2, 6 input nodes, 23 genres) in fp32 and in bf16.
-   The kernel must launch exactly twice per batch (one launch per found
-   cell), the logits must be finite, and the weighted-F1 line must be
-   printed. One batch's logits on CUDA and on the CPU must agree within
-   1e-3 (TF32 off for both matmuls and convolutions). Then a breakdown of
-   one request of 8 in fp32 and bf16: host time to read the batch, host
-   time of ``predict``, and each top-level layer's device-time span.
-5. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
+   The found-cell kernel must launch exactly twice per batch (one launch
+   per found cell), the logits must be finite, and the weighted-F1 line
+   must be printed. One batch's logits on CUDA and on the CPU must agree
+   within 1e-3 (TF32 off for both matmuls and convolutions). Then a
+   breakdown of one request of 8 in fp32 and bf16: host time to read the
+   batch, host time of ``predict``, and each top-level layer's device-time
+   span.
+6. search: a synthetic MM-IMDB split of 160x256 images (46 train, 22 dev
+   samples: ragged final batches of 6), one epoch of the port's bilevel
+   search ``bmnas_tpu_torch.cli.mmimdb.main_search`` on the card at the
+   full width (C=192, L=16, steps=2, multiplier=2, node_steps=1, batch 8),
+   then the supernet's eval step over the dev split from the written
+   ``best/best_model.pt``. Checks: ``log.txt``, ``metrics.jsonl`` (finite
+   losses), ``best/best_genotype.pkl`` and ``architectures/epoch_0``
+   written; the mixed-op kernel launched no time during the train-mode
+   steps and exactly 2 x batches times in the eval step; the eval logits on
+   CUDA and on the CPU within 1e-3 (TF32 off); three bilevel steps on CUDA
+   and on the CPU from the same weights (64x64 images, dropout off) give
+   arch tensors within rtol 5e-3 / atol 5e-6 and the same genotype. Then
+   the median host time of a weight step, an arch step and an eval step at
+   B=8, in three rounds, and each step's device busy time, idle share and
+   kernel launches from a ``torch.profiler`` trace.
+7. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
+
+Every kernel must launch on its main path (found_cell: serving; node_mixed:
+the search's eval step): the counts are set to 0 just before each path and
+read just after it.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import glob
 import io
 import json
 import math
@@ -80,7 +108,7 @@ def nvidia_smi_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernel vs plain
+# phase 3: found_cell vs plain
 # ---------------------------------------------------------------------------
 
 def chain_edges(node_steps):
@@ -215,7 +243,112 @@ def kernel_phase(device):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve
+# phase 4: node_mixed vs plain
+# ---------------------------------------------------------------------------
+
+MIXED_GAMMAS = ("softmax", "sum", "attn", "glu", "fc")
+
+
+def mixed_params(gen, dtype, device):
+    from bmnas_tpu_torch.ops.kernels.node_mixed import NodeMixedParams
+
+    def r(*shape, k=1.0):
+        return (torch.randn(*shape, generator=gen) * k).to(device, dtype)
+    w = 1.0 / math.sqrt(2 * C)
+    return NodeMixedParams(
+        ln_scale=r(L, C), ln_bias=r(L, C),
+        glu_kernel=r(2 * C, 2 * C, k=w), glu_bias=r(2 * C, k=0.1),
+        cfc_kernel=r(2 * C, C, k=w), cfc_bias=r(C, k=0.1))
+
+
+def mixed_work(B, itemsize, same):
+    """(bytes, FLOP) of one mixed-op call: x (and y unless it is x), out,
+    the LayerNorm affine and both dense layers once, the four fp32 branch
+    weights; GEMMs at 2 FLOP per multiply-add, elementwise work at one FLOP
+    per element and operation."""
+    LC = L * C
+    nbytes = ((2 if same else 3) * B * LC + 2 * LC + 6 * C * C + 3 * C) \
+        * itemsize + 4 * 4
+    flops = B * (LC                                    # x + y
+                 + 4 * L * L * C + 5 * L * L + 8 * LC  # attention + LN
+                 + 2 * L * 2 * C * 2 * C + 6 * LC      # GLU
+                 + 2 * L * 2 * C * C + 2 * LC          # ConcatFC + ReLU
+                 + 7 * LC)                             # the weighted sum
+    return nbytes, flops
+
+
+def mixed_bound_ms(B, itemsize, same):
+    nbytes, flops = mixed_work(B, itemsize, same)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def mixed_phase(device):
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    from bmnas_tpu_torch.ops.kernels.node_mixed import (
+        node_mixed_op_fused,
+        node_mixed_op_reference,
+    )
+    gen = torch.Generator().manual_seed(1)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        p = mixed_params(gen, dtype, device)
+        for B in (8, 37, 96):
+            x = torch.randn(B, L, C, generator=gen).to(device, dtype)
+            y = torch.randn(B, L, C, generator=gen).to(device, dtype)
+            for gk in MIXED_GAMMAS:
+                g = (torch.randn(4, generator=gen).softmax(0)
+                     if gk == "softmax" else torch.eye(4)[
+                         MIXED_GAMMAS.index(gk) - 1]).to(device)
+                for same in (False, True):
+                    yy = x if same else y
+                    before = LAUNCHES["node_mixed"]
+                    got = node_mixed_op_fused(x, yy, g, p)
+                    torch.cuda.synchronize()
+                    launched = LAUNCHES["node_mixed"] - before
+                    want = node_mixed_op_reference(x, yy, g, p)
+                    gf, wf = got.float(), want.float()
+                    err = (gf - wf).abs()
+                    tol = TOLS[dtype]
+                    ok = bool(torch.isfinite(gf).all()) and bool(
+                        (err <= tol + tol * wf.abs()).all())
+                    row = {"gammas": gk, "x_is_y": same, "B": B,
+                           "dtype": str(dtype).split(".")[-1],
+                           "launches": launched,
+                           "max_abs_err": float(err.max()),
+                           "tolerance": tol, "ok": ok}
+                    if B in (8, 96) and gk == "softmax" and same:
+                        kern = lambda: node_mixed_op_fused(  # noqa: E731
+                            x, x, g, p)
+                        plain = lambda: node_mixed_op_reference(  # noqa
+                            x, x, g, p)
+                        row["ms"] = time_ms(kern, flush, True)
+                        row["plain_ms"] = time_ms(plain, flush, True)
+                        row["call_ms"] = time_ms(kern, flush, False)
+                        row["plain_call_ms"] = time_ms(plain, flush, False)
+                        row["bound_ms"], row["bound_by"] = mixed_bound_ms(
+                            B, x.element_size(), True)
+                    rows.append(row)
+                    if not ok or launched != 1:
+                        raise AssertionError(f"node_mixed disagrees with "
+                                             f"its plain version: {row}")
+                    if "ms" in row:
+                        log("  node_mixed B={B:<3} {dtype:<8} x is y, "
+                            "softmaxed gammas: ms={ms:.4f} "
+                            "plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f}"
+                            " ({bound_by}) call_ms={call_ms:.4f} "
+                            "plain_call_ms={plain_call_ms:.4f}".format(**row))
+    for dt in ("float32", "bfloat16"):
+        log("  node_mixed {}: {} checks ok, max_abs_err {:.3g}".format(
+            dt, sum(r["dtype"] == dt for r in rows),
+            max(r["max_abs_err"] for r in rows if r["dtype"] == dt)))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve
 # ---------------------------------------------------------------------------
 
 SERVE_CFG = dict(C=C, L=L, steps=2, multiplier=2, node_steps=1,
@@ -372,6 +505,294 @@ def serve_breakdown(data, exp, dtype, iters=20):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: search
+# ---------------------------------------------------------------------------
+
+SEARCH_CFG = dict(SERVE_CFG)
+SEARCH_COUNTS = {"train": 46, "dev": 22, "test": 0}
+
+
+def search_run(root):
+    """One epoch of ``main_search`` on the card; returns (exp dir, data dir,
+    node_mixed launches during the run)."""
+    from bmnas_tpu_torch.cli.mmimdb import main_search
+    from bmnas_tpu_torch.data.synthetic import make_mmimdb_synthetic
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    data = os.path.join(root, "search_data")
+    # labels that follow the text (a learnable rule, about half positive):
+    # after one epoch the dev F1 is above 0, so a best snapshot is written
+    make_mmimdb_synthetic(data, image_hw=(160, 256), seed=2,
+                          correlated=True, counts=SEARCH_COUNTS)
+    cwd = os.getcwd()
+    os.chdir(root)  # main_search writes final_exp/ under the working dir
+    try:
+        before = LAUNCHES["node_mixed"]
+        t0 = time.perf_counter()
+        best_f1, geno = main_search([
+            "--datadir", data, "--epochs", "1", "--batchsize", str(BATCH),
+            "--num_workers", "4"])
+        seconds = time.perf_counter() - t0
+        launched = LAUNCHES["node_mixed"] - before
+    finally:
+        os.chdir(cwd)
+    (exp,) = glob.glob(os.path.join(root, "final_exp", "mmimdb",
+                                    "search-EXP-*"))
+    return exp, data, launched, best_f1, geno, seconds
+
+
+def check_search_artifacts(exp, best_f1, geno):
+    from bmnas_tpu_torch.genotype import load_genotype
+    with open(os.path.join(exp, "log.txt")) as f:
+        log_text = f.read()
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rows = [json.loads(r) for r in f]
+    pkl = os.path.join(exp, "best", "best_genotype.pkl")
+    checks = {
+        "log.txt train/dev lines": "train Loss:" in log_text
+        and "dev Loss:" in log_text,
+        "metrics.jsonl train+dev, finite": [r["phase"] for r in rows]
+        == ["train", "dev"] and all(math.isfinite(r["loss"]) for r in rows),
+        "best_genotype.pkl": os.path.exists(pkl)
+        and load_genotype(pkl) == geno,
+        "best_model.pt": os.path.exists(os.path.join(exp, "best",
+                                                     "best_model.pt")),
+        "architectures/epoch_0": bool(glob.glob(os.path.join(
+            exp, "architectures", "epoch_0*"))),
+        "f1 in (0, 1]": 0.0 < best_f1 <= 1.0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"search artifacts: {checks}")
+    return {"metrics": rows, "best_f1": best_f1, "genotype": str(geno)}
+
+
+def search_model(exp, device):
+    """The searched supernet and its arch tensors from best_model.pt."""
+    from bmnas_tpu_torch.models.mmimdb import SearchableImageTextNet
+    from bmnas_tpu_torch.utils.checkpoint import load_checkpoint
+    sd, arch = load_checkpoint(os.path.join(exp, "best", "best_model.pt"))
+    model = SearchableImageTextNet(**SEARCH_CFG)
+    model.load_state_dict(sd)
+    return model.to(device), {k: v.to(device) for k, v in arch.items()}
+
+
+def search_eval(exp, data, device):
+    """The supernet's eval step over the dev split."""
+    from bmnas_tpu_torch.cli.mmimdb import batches_on, counts_fn
+    from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    from bmnas_tpu_torch.search.bilevel import (
+        TrainState,
+        bce_with_logits,
+        build_step_functions,
+    )
+    from bmnas_tpu_torch.utils.metrics import f1_from_counts
+    model, arch = search_model(exp, device)
+    state = TrainState(model=model, arch=arch, opt_w=None, opt_arch=None)
+    fns = build_step_functions(bce_with_logits, counts_fn)
+    dev = MMIMDBDataset(data, "dev", num_workers=4)
+    before = LAUNCHES["node_mixed"]
+    total, n = None, 0
+    for b in batches_on(device, dev.batches(BATCH, shuffle=False)):
+        c = fns.eval_step(state, b)
+        total = c if total is None else {k: total[k] + c[k] for k in total}
+        n += 1
+    torch.cuda.synchronize()
+    launched = LAUNCHES["node_mixed"] - before
+    loss = float(total["loss_sum"]) / len(dev)
+    f1 = f1_from_counts(total, "weighted")
+    if not (launched == 2 * n and math.isfinite(loss) and 0 <= f1 <= 1):
+        raise AssertionError(f"search eval step: {n} batches, {launched} "
+                             f"node_mixed launches, loss {loss}, f1 {f1}")
+    return {"batches": n, "launches": launched, "loss": loss, "f1": f1}
+
+
+def search_cuda_vs_cpu(exp, data, devices=("cuda", "cpu")):
+    """One dev batch's eval logits, the port on CUDA against the CPU."""
+    from bmnas_tpu_torch.cli.mmimdb import batches_on
+    from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
+    batch = next(iter(MMIMDBDataset(data, "dev", num_workers=4)
+                      .batches(BATCH, shuffle=False)))
+    out = []
+    for dev in devices:
+        model, arch = search_model(exp, dev)
+        with torch.no_grad():
+            b = next(batches_on(torch.device(dev), [batch]))
+            out.append(model.eval()(b, arch).float().cpu().numpy())
+    diff = float(np.abs(out[0] - out[1]).max())
+    if not (np.isfinite(out[0]).all() and diff <= 1e-3):
+        raise AssertionError(f"search eval logits: CUDA vs CPU differ by "
+                             f"{diff}")
+    return {"max_abs_diff": diff, "logits_abs_max":
+            float(np.abs(out[1]).max()), "tolerance": 1e-3}
+
+
+def _step_setup(model, arch, device):
+    from bmnas_tpu_torch.models.mmimdb import MMIMDB_FROZEN_PREFIXES
+    from bmnas_tpu_torch.search.bilevel import (
+        TrainState,
+        freeze,
+        make_arch_optimizer,
+        make_weight_optimizer,
+    )
+    model = copy.deepcopy(model).to(device)
+    freeze(model, MMIMDB_FROZEN_PREFIXES)
+    arch = {k: v.detach().clone().to(device).requires_grad_()
+            for k, v in arch.items()}
+    return TrainState(
+        model=model, arch=arch,
+        opt_w=make_weight_optimizer(model, MMIMDB_FROZEN_PREFIXES, 1e-4),
+        opt_arch=make_arch_optimizer(arch, 3e-4, 1e-3))
+
+
+def _synthetic_batch(rng, hw, valid=BATCH):
+    b = {"image": rng.randn(BATCH, *hw, 3).astype(np.float32),
+         "text": rng.randn(BATCH, 300).astype(np.float32),
+         "label": (rng.rand(BATCH, 23) < 0.2).astype(np.float32),
+         "mask": (np.arange(BATCH) < valid).astype(np.float32)}
+    for k in ("image", "text", "label"):
+        b[k][valid:] = 0.0
+    return b
+
+
+def search_steps_cuda_vs_cpu(devices=("cuda", "cpu")):
+    """Three bilevel steps from the same seeded weights on CUDA and on the
+    CPU, 64x64 images, dropout off."""
+    from bmnas_tpu_torch.cli.mmimdb import batches_on, counts_fn
+    from bmnas_tpu_torch.models.mmimdb import SearchableImageTextNet
+    from bmnas_tpu_torch.models.supernet import (
+        derive_genotype_from_arch,
+        init_arch_params,
+    )
+    from bmnas_tpu_torch.search.bilevel import (
+        bce_with_logits,
+        build_step_functions,
+    )
+    torch.manual_seed(3)
+    model = SearchableImageTextNet(**SEARCH_CFG)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    arch = init_arch_params(torch.Generator().manual_seed(4), 2, 6, 1)
+    rng = np.random.RandomState(5)
+    train_b = _synthetic_batch(rng, (64, 64), valid=BATCH - 2)
+    dev_b = _synthetic_batch(rng, (64, 64))
+    fns = build_step_functions(bce_with_logits, counts_fn)
+    got = []
+    for dev in devices:
+        state = _step_setup(model, arch, dev)
+        tb, db = batches_on(torch.device(dev), [train_b, dev_b])
+        for eta in (1e-3, 9e-4, 8e-4):
+            fns.weight_step(state, tb, eta)
+            fns.arch_step(state, db)
+        got.append(({k: v.detach().cpu() for k, v in state.arch.items()},
+                    derive_genotype_from_arch(state.arch, 2, 2, 6, 1, 1)))
+    (a_gpu, g_gpu), (a_cpu, g_cpu) = got
+    close = all(torch.allclose(a_gpu[k], a_cpu[k], rtol=5e-3, atol=5e-6)
+                for k in a_cpu)
+    diff = max(float((a_gpu[k] - a_cpu[k]).abs().max()) for k in a_cpu)
+    moved = max(float((a_cpu[k] - arch[k].detach()).abs().max())
+                for k in a_cpu)
+    if not (close and g_gpu == g_cpu):
+        raise AssertionError(f"bilevel steps CUDA vs CPU: arch max diff "
+                             f"{diff}, genotypes {g_gpu} / {g_cpu}")
+    return {"arch_max_abs_diff": diff, "arch_moved": moved,
+            "rtol": 5e-3, "atol": 5e-6, "same_genotype": True}
+
+
+def device_busy_ms(fn, tmp, iters=5):
+    """Device busy time of one call of ``fn``, its number of kernel
+    launches and its three longest kernels, from a ``torch.profiler`` trace
+    of ``iters`` calls: the union of the kernel, memcpy and memset
+    intervals, over ``iters``. None when the trace holds no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(tmp, "step_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        return None, 0.0, []
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name, launches = {}, 0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+            launches += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return (busy / iters / 1e3, launches / iters,
+            [(n[:80], d / iters / 1e3) for n, d in top])
+
+
+def search_step_times(exp, data, device, tmp, iters=10, rounds=3):
+    """Host time of one weight, arch and eval step at B=8 (the step ends in
+    a synchronize), on a dev batch of 160x256 images: the median of
+    ``iters`` steps, in ``rounds`` rounds that take turns over the three
+    steps. Then each step's device busy time and kernel launches from a
+    profiler trace, and the device's idle share of the last round's
+    median."""
+    from bmnas_tpu_torch.cli.mmimdb import batches_on, counts_fn
+    from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
+    from bmnas_tpu_torch.search.bilevel import (
+        bce_with_logits,
+        build_step_functions,
+    )
+    model, arch = search_model(exp, "cpu")
+    state = _step_setup(model, arch, device)
+    fns = build_step_functions(bce_with_logits, counts_fn)
+    (b,) = batches_on(device, [next(iter(MMIMDBDataset(
+        data, "dev", num_workers=4).batches(BATCH, shuffle=False)))])
+    steps = {"weight_step": lambda: fns.weight_step(state, b, 1e-3),
+             "arch_step": lambda: fns.arch_step(state, b),
+             "eval_step": lambda: fns.eval_step(state, b)}
+    out = {name: {"host_ms_rounds": []} for name in steps}
+    for _ in range(rounds):
+        for name, fn in steps.items():
+            times = []
+            for _ in range(iters + 2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            out[name]["host_ms_rounds"].append(statistics.median(times[2:]))
+    for name, fn in steps.items():
+        busy, launches, top = device_busy_ms(fn, tmp)
+        host = out[name]["host_ms_rounds"][-1]
+        out[name].update(
+            host_ms=host, device_busy_ms=busy, top_kernels_ms=top,
+            kernel_launches=launches,
+            device_idle_share=None if busy is None else 1 - busy / host)
+    return out
+
+
+def step_line(v) -> str:
+    rounds = " / ".join(f"{t:.3f}" for t in v["host_ms_rounds"])
+    line = f"host ms to sync, median per round {rounds}; device busy "
+    if v["device_busy_ms"] is None:
+        return line + "not measured (no device events in the profiler trace)"
+    top = ", ".join(f"{n} {d:.3f}" for n, d in v["top_kernels_ms"])
+    return line + (
+        f"{v['device_busy_ms']:.3f} ms, idle share "
+        f"{v['device_idle_share']:.3f}, {v['kernel_launches']:.0f} kernel "
+        f"launches, {1e3 * v['host_ms'] / v['kernel_launches']:.2f} host us "
+        f"per launch; top {top}")
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -406,13 +827,19 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {n}: {line.strip()}")
 
-    log("[3 kernel vs plain] L=16 C=192")
+    log("[3 found_cell vs plain] L=16 C=192")
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = kernel_phase(device)
     report["found_cell"] = rows
 
-    log("[4 serve] MM-IMDB found net, C=192 L=16, 160x256 images, "
+    log("[4 node_mixed vs plain] L=16 C=192, B in (8, 37, 96), "
+        f"{len(MIXED_GAMMAS)} gamma kinds, x != y and x is y")
+    mixed_rows = mixed_phase(device)
+    report["node_mixed"] = mixed_rows
+
+    log("[5 serve] MM-IMDB found net, C=192 L=16, 160x256 images, "
         f"{SERVE_SAMPLES} samples in batches of {BATCH}")
+    main_path_launches = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         data, exp = write_experiment(tmp)
@@ -421,7 +848,7 @@ def main(argv=None):
         reset_launches()
         serve = {"fp32": serve_once(data, exp, bf16=False),
                  "bf16": serve_once(data, exp, bf16=True)}
-        main_path_launches = dict(LAUNCHES)
+        main_path_launches["serve"] = dict(LAUNCHES)
         serve["cuda_vs_cpu"] = cuda_vs_cpu(data, exp)
         log(f"  cuda vs cpu logits: {serve['cuda_vs_cpu']}")
         torch.backends.cudnn.allow_tf32 = True
@@ -432,29 +859,64 @@ def main(argv=None):
                 " predict {predict_ms:.3f} ms, other {other_ms:.3f} ms, "
                 "layers (device) ".format(**b) + ", ".join(
                     f"{k} {v:.4f}" for k, v in b["layer_device_ms"].items()))
+        report["serve"] = serve
+
+        log("[6 search] MM-IMDB supernet, C=192 L=16, 160x256 images, "
+            f"{SEARCH_COUNTS['train']} train + {SEARCH_COUNTS['dev']} dev "
+            f"samples in batches of {BATCH}, one epoch")
+        reset_launches()
+        s_exp, s_data, train_launches, best_f1, geno, s_seconds = \
+            search_run(tmp)
+        search = check_search_artifacts(s_exp, best_f1, geno)
+        search["seconds"] = s_seconds
+        search["node_mixed_launches_in_train_mode_steps"] = train_launches
+        if train_launches != 0:
+            raise AssertionError(f"node_mixed launched {train_launches} "
+                                 "times during the train-mode steps")
+        search["eval"] = search_eval(s_exp, s_data, device)
+        main_path_launches["search"] = dict(LAUNCHES)
+        log("  search: {:.1f} s, best dev F1 {:.4f}, node_mixed launches: "
+            "{} in the train-mode steps, {} in the eval step over {} dev "
+            "batches".format(s_seconds, best_f1, train_launches,
+                             search["eval"]["launches"],
+                             search["eval"]["batches"]))
+        torch.backends.cudnn.allow_tf32 = False
+        search["cuda_vs_cpu"] = search_cuda_vs_cpu(s_exp, s_data)
+        log(f"  eval logits cuda vs cpu: {search['cuda_vs_cpu']}")
+        search["steps_cuda_vs_cpu"] = search_steps_cuda_vs_cpu()
+        log(f"  3 bilevel steps cuda vs cpu: {search['steps_cuda_vs_cpu']}")
+        torch.backends.cudnn.allow_tf32 = True
+        search["steps"] = search_step_times(s_exp, s_data, device, tmp)
+        for k, v in search["steps"].items():
+            log(f"  {k} (B=8, 160x256): {step_line(v)}")
+        report["search"] = search
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    report["serve"] = serve
     report["main_path_launches"] = main_path_launches
-    for n in names:
-        if main_path_launches[n] == 0:
-            raise AssertionError(f"kernel {n} never launched on the main path")
+    for path, name in (("serve", "found_cell"), ("search", "node_mixed")):
+        if main_path_launches[path][name] == 0:
+            raise AssertionError(f"kernel {name} never launched on its main "
+                                 f"path ({path})")
 
-    # the kernels line: the served genotype's two cells at B=8, fp32
+    # the kernels line. found_cell: the served genotype's two cells at B=8,
+    # fp32; node_mixed: the supernet's call (x is y, softmaxed gammas) at
+    # B=8, fp32
     served = [r for r in rows if r["B"] == 8 and r["dtype"] == "float32"
               and r["node_steps"] == 1 and r["ops"] in ("ScaleDotAttn",
                                                         "LinearGLU")]
     mean = lambda k: sum(r[k] for r in served) / len(served)  # noqa: E731
-    fp32_err = max(r["max_abs_err"] for r in rows if r["dtype"] == "float32")
-    bf16_err = max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+    err = lambda rs, dt: max(r["max_abs_err"] for r in rs  # noqa: E731
+                             if r["dtype"] == dt)
+    (mixed,) = [r for r in mixed_rows if "ms" in r and r["B"] == 8
+                and r["dtype"] == "float32"]
     kernels = {"kernels": [{
         "name": "found_cell",
         "route": "cuda",
         "source": "bmnas_tpu_torch/csrc/found_cell.cu",
         "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:366",
-        "launches": main_path_launches["found_cell"],
-        "max_abs_err": fp32_err,
-        "max_abs_err_bf16": bf16_err,
+        "launches": main_path_launches["serve"]["found_cell"],
+        "max_abs_err": err(rows, "float32"),
+        "max_abs_err_bf16": err(rows, "bfloat16"),
         "ms": mean("ms"),
         "plain_ms": mean("plain_ms"),
         "bound_ms": mean("bound_ms"),
@@ -463,6 +925,21 @@ def main(argv=None):
         "library_ms": None,
         "call_ms": mean("call_ms"),
         "plain_call_ms": mean("plain_call_ms"),
+    }, {
+        "name": "node_mixed",
+        "route": "cuda",
+        "source": "bmnas_tpu_torch/csrc/node_mixed.cu",
+        "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:200",
+        "launches": main_path_launches["search"]["node_mixed"],
+        "max_abs_err": err(mixed_rows, "float32"),
+        "max_abs_err_bf16": err(mixed_rows, "bfloat16"),
+        "ms": mixed["ms"],
+        "plain_ms": mixed["plain_ms"],
+        "bound_ms": mixed["bound_ms"],
+        "bound_by": mixed["bound_by"],
+        "library_ms": None,
+        "call_ms": mixed["call_ms"],
+        "plain_call_ms": mixed["plain_call_ms"],
     }]}
     report["kernels"] = kernels["kernels"]
     report["seconds"] = time.perf_counter() - t_start
@@ -471,7 +948,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    log(f"[5 result] {report['seconds']:.1f} s"
+    log(f"[7 result] {report['seconds']:.1f} s"
         + (f"; full report in {args.out}" if args.out else ""))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -35,9 +35,12 @@ def test_port_imports_no_jax_or_reference():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "bmnas_tpu_torch.cli.serve" in res["imported"]
-    assert "bmnas_tpu_torch.ops.kernels.node_mixed" in res["imported"]
-    assert len(res["imported"]) >= 20
+    for name in ("cli.serve", "cli.mmimdb", "ops.kernels.node_mixed",
+                 "ops.fusion_ops", "models.supernet", "search.bilevel",
+                 "search.loop", "search.scheduler", "utils.experiment",
+                 "visualize"):
+        assert f"bmnas_tpu_torch.{name}" in res["imported"], name
+    assert len(res["imported"]) >= 27
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert not bad, bad
 
@@ -55,6 +58,7 @@ def _imports(path):
 def test_chip_smoke_imports_no_jax_or_reference():
     names = list(_imports(os.path.join(ROOT, "chip_smoke.py")))
     assert "torch" in names and "bmnas_tpu_torch.cli.serve" in names
+    assert "bmnas_tpu_torch.cli.mmimdb" in names
     assert not [n for n in names if _forbidden(n)]
 
 
@@ -87,6 +91,7 @@ def test_kernel_module_builds_nothing_at_import():
     build happens at the first CUDA launch."""
     from bmnas_tpu_torch.ops.kernels import _build
     assert _build.CSRC.endswith(os.path.join("bmnas_tpu_torch", "csrc"))
-    assert os.path.exists(os.path.join(_build.CSRC, "found_cell.cu"))
+    for src in ("found_cell.cu", "node_mixed.cu", "cell_common.cuh"):
+        assert os.path.exists(os.path.join(_build.CSRC, src))
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert not _build._LIBS

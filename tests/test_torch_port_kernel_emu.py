@@ -1,16 +1,18 @@
-"""The found-cell CUDA kernel's own code, run on the CPU by emulation.
+"""The fusion-cell CUDA kernels' own code, run on the CPU by emulation.
 
 There is no CUDA compiler or card on the test host, so
-``bmnas_tpu_torch/csrc/found_cell.cu`` is compiled as C++ against stand-in
-CUDA headers: one ``std::thread`` per CUDA thread, a ``std::barrier`` for
+``bmnas_tpu_torch/csrc/found_cell.cu`` and ``node_mixed.cu``, with their
+shared ``cell_common.cuh``, are compiled as C++ against stand-in CUDA
+headers: one ``std::thread`` per CUDA thread, a ``std::barrier`` for
 ``__syncthreads``, per-warp barriers for the shuffles, ``cp.async`` as a
 plain 16-byte copy, blocks one after another, shared memory allocated at
 exactly the launch's size and filled with NaNs. What it checks is the
-kernel's indexing, tiling, staging and synchronisation order, through the
-port's own ctypes binding (``node_mixed.bind`` / ``node_mixed.launch``),
-against ``found_node_cell_reference``. It cannot check timing, memory
-ordering on the card or the compiler's output; ``chip_smoke.py`` does that.
-Skips where there is no ``g++``.
+kernels' indexing, tiling, staging and synchronisation order, through the
+port's own ctypes bindings (``node_mixed.bind`` / ``launch`` and
+``bind_mixed`` / ``launch_mixed``), against ``found_node_cell_reference``
+and ``node_mixed_op_reference``. It cannot check timing, memory ordering
+on the card or the compiler's output; ``chip_smoke.py`` does that. Skips
+where there is no ``g++``.
 """
 import ctypes
 import math
@@ -146,8 +148,8 @@ void emu_launch(int blocks, int threads, size_t bytes,
 """
 
 
-def _emulated_source(src: str) -> str:
-    """found_cell.cu with its inline PTX and launch syntax replaced."""
+def _emulated_header(src: str) -> str:
+    """cell_common.cuh with its inline PTX replaced."""
     stand_ins = {
         "cp_async16": "inline void cp_async16(void* s, const void* g) "
                       "{ std::memcpy(s, g, 16); }",
@@ -159,38 +161,54 @@ def _emulated_source(src: str) -> str:
                          + r"\(.*?\n\}", body, src, flags=re.S)
         assert n == 1, name
     assert "asm" not in src
-    replace = {
-        "extern __shared__ __align__(16) float smem[];":
-            "float* smem = g_smem;",
-        "found_cell_kernel<T><<<B, threads, smem, stream>>>(":
-            "emu_launch(B, threads, smem, [=]() { found_cell_kernel<T>(",
-        "p, cfg, L, C, eps);\n  return":
-            "p, cfg, L, C, eps); });\n  return",
-    }
-    for old, new in replace.items():
-        assert src.count(old) == 1, old
-        src = src.replace(old, new)
+    return src
+
+
+def _emulated_source(src: str) -> str:
+    """A kernel source with its launch syntax replaced."""
+    old = "extern __shared__ __align__(16) float smem[];"
+    assert src.count(old) == 1
+    src = src.replace(old, "float* smem = g_smem;")
+    # kernel<T><<<grid, block, smem, stream>>>(args): the stream is dropped
+    src, n = re.subn(r"(\w+_kernel<T>)<<<([^,]+,[^,]+,[^,]+),[^>]*>>>"
+                     r"\((.*?)\);",
+                     r"emu_launch(\2, [=]() { \1(\3); });", src,
+                     flags=re.S)
+    assert n == 1
+    assert "asm" not in src
     return '#include "cuda_runtime.h"\n' + src
 
 
 @pytest.fixture(scope="module")
-def emu_lib(tmp_path_factory):
+def emu_libs(tmp_path_factory):
+    """{'found_cell': lib, 'node_mixed': lib}: both kernels and the
+    emulated runtime in one library, bound with the port's bindings."""
     cxx = shutil.which("g++")
     if cxx is None:
-        pytest.skip("no g++ to compile the kernel's CPU emulation")
-    d = tmp_path_factory.mktemp("found_cell_emu")
-    with open(os.path.join(_build.CSRC, "found_cell.cu")) as f:
-        src = _emulated_source(f.read())
+        pytest.skip("no g++ to compile the kernels' CPU emulation")
+    d = tmp_path_factory.mktemp("cell_kernels_emu")
     files = {"cuda_runtime.h": CUDA_RUNTIME_H, "cuda_bf16.h": CUDA_BF16_H,
-             "emu_runtime.cpp": EMU_RUNTIME_CPP, "found_cell_emu.cpp": src}
+             "emu_runtime.cpp": EMU_RUNTIME_CPP}
+    with open(os.path.join(_build.CSRC, "cell_common.cuh")) as f:
+        files["cell_common.cuh"] = _emulated_header(f.read())
+    for name in ("found_cell", "node_mixed"):
+        with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+            files[f"{name}_emu.cpp"] = _emulated_source(f.read())
     for name, text in files.items():
         (d / name).write_text(text)
-    so = d / "libfound_cell_emu.so"
+    so = d / "libcell_kernels_emu.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
                     f"-I{d}", "-o", str(so), str(d / "found_cell_emu.cpp"),
+                    str(d / "node_mixed_emu.cpp"),
                     str(d / "emu_runtime.cpp"), "-lpthread"],
                    check=True, capture_output=True, timeout=300)
-    return tnm.bind(ctypes.CDLL(str(so)))
+    return {"found_cell": tnm.bind(ctypes.CDLL(str(so))),
+            "node_mixed": tnm.bind_mixed(ctypes.CDLL(str(so)))}
+
+
+@pytest.fixture(scope="module")
+def emu_lib(emu_libs):
+    return emu_libs["found_cell"]
 
 
 CONFIGS = [
@@ -269,3 +287,71 @@ def test_kernel_refuses_width(emu_lib):
     with pytest.raises(RuntimeError, match="launch failed"):
         tnm.launch(emu_lib, x, x, p, ((0, (True, 0), (True, 1)),), 1, 1e-5,
                    None)
+
+
+# ---------------------------------------------------------------------------
+# node_mixed.cu
+# ---------------------------------------------------------------------------
+
+def _mixed_params(gen, L, C, dtype):
+    def r(*shape, k=1.0):
+        return (torch.randn(*shape, generator=gen) * k).to(dtype)
+    w = 1.0 / math.sqrt(2 * C)
+    return tnm.NodeMixedParams(
+        ln_scale=r(L, C), ln_bias=r(L, C),
+        glu_kernel=r(2 * C, 2 * C, k=w), glu_bias=r(2 * C, k=0.1),
+        cfc_kernel=r(2 * C, C, k=w), cfc_bias=r(C, k=0.1))
+
+
+GAMMAS = {"softmax": None, "sum": 0, "attn": 1, "glu": 2, "fc": 3}
+
+
+@pytest.mark.parametrize("same", [False, True], ids=["x-y", "x-is-y"])
+@pytest.mark.parametrize("gammas", list(GAMMAS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_node_mixed_matches_reference(emu_libs, dtype, gammas, same):
+    """B=3, L=8, C=16 (one row tile, half of it past the last row), with
+    softmaxed or one-hot branch weights, and x and y one tensor or two."""
+    B, L, C = 3, 8, 16
+    gen = torch.Generator().manual_seed(5)
+    p = _mixed_params(gen, L, C, dtype)
+    x = torch.randn(B, L, C, generator=gen).to(dtype)
+    y = x if same else torch.randn(B, L, C, generator=gen).to(dtype)
+    if GAMMAS[gammas] is None:
+        g = torch.randn(4, generator=gen).softmax(0)
+    else:
+        g = torch.nn.functional.one_hot(torch.tensor(GAMMAS[gammas]),
+                                        4).float()
+    tnm._check_mixed(x, y, g, p)
+    got = tnm.launch_mixed(emu_libs["node_mixed"], x, y, g, p, 1e-5,
+                           None).float()
+    want = tnm.node_mixed_op_reference(x, y, g, p).float()
+    tol = TOLS[dtype]
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= tol + tol * want.abs()).all(), float(
+        (got - want).abs().max())
+
+
+def test_node_mixed_two_row_tiles(emu_libs):
+    """L=20 (a full row tile, then a ragged one) and C=32 (several K-tiles
+    for both GEMMs)."""
+    B, L, C = 2, 20, 32
+    gen = torch.Generator().manual_seed(6)
+    p = _mixed_params(gen, L, C, torch.float32)
+    x, y = (torch.randn(B, L, C, generator=gen) for _ in range(2))
+    g = torch.randn(4, generator=gen).softmax(0)
+    got = tnm.launch_mixed(emu_libs["node_mixed"], x, y, g, p, 1e-5, None)
+    want = tnm.node_mixed_op_reference(x, y, g, p)
+    assert ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()
+
+
+def test_node_mixed_refuses_width(emu_libs):
+    """The C function refuses a width it cannot host; the binding raises."""
+    B, L, C = 2, 8, 12
+    gen = torch.Generator().manual_seed(7)
+    p = _mixed_params(gen, L, C, torch.float32)
+    x = torch.randn(B, L, C, generator=gen)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tnm.launch_mixed(emu_libs["node_mixed"], x, x, torch.ones(4) / 4, p,
+                         1e-5, None)
