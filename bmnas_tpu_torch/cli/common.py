@@ -1,10 +1,10 @@
-"""Shared CLI plumbing: the reference's common flag set.
+"""Shared CLI plumbing: the reference's common flag set, resume, test-only.
 
 Port of the ``add_common_flags`` / ``model_kwargs_from_args`` /
-``fail_fast_checks`` / ``_stage_seed`` subset of
-``bmnas_tpu/cli/common.py``. The JAX package's flags whose machinery is not
-ported yet are parsed and refused with the ROADMAP.md item that brings
-them (:data:`NOT_PORTED`), never ignored. Both spellings
+``fail_fast_checks`` / ``_stage_seed`` / ``apply_resume`` /
+``run_test_only`` subset of ``bmnas_tpu/cli/common.py``. The JAX package's
+flags whose machinery is not ported yet are parsed and refused with the
+ROADMAP.md item that brings them (:data:`NOT_PORTED`), never ignored. Both spellings
 ``--use_dataparallel`` / ``--parallel`` are accepted as in the reference,
 but the port runs on one device and refuses the flag.
 """
@@ -18,8 +18,6 @@ import zlib
 NOT_PORTED = {
     "--unrolled": (lambda a: a.unrolled,
                    "Queue 1 item 3, search extras"),
-    "--resume": (lambda a: a.resume is not None,
-                 "Queue 1 item 3, search extras"),
     "--steps_per_dispatch": (lambda a: a.steps_per_dispatch != 1,
                              "Queue 1 item 3, search extras"),
     "--bf16_backbone": (lambda a: a.bf16_backbone,
@@ -89,10 +87,10 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
                         help='cosine annealing epochs Ti')
     parser.add_argument('--Tm', type=int, default=2,
                         help='cosine annealing multiplier Tm')
-    # flags of the JAX package that the port parses and refuses
-    # (NOT_PORTED)
+    # --resume, then the flags of the JAX package that the port parses and
+    # refuses (NOT_PORTED)
     parser.add_argument('--resume', type=str, default=None,
-                        help='(not ported yet) resume from a checkpoint')
+                        help='resume from an <exp>/checkpoint.pt')
     parser.add_argument('--profile_dir', type=str, default=None,
                         help='(not ported yet) profiler trace directory')
     parser.add_argument('--bf16_backbone', action='store_true',
@@ -125,6 +123,9 @@ def fail_fast_checks(args) -> None:
     for flag, (is_set, item) in NOT_PORTED.items():
         if is_set(args):
             raise SystemExit(f"{flag}: not ported yet (ROADMAP.md {item})")
+    resume = getattr(args, "resume", None)
+    if resume and not os.path.exists(resume):
+        raise SystemExit(f"--resume: checkpoint not found: {resume}")
     datadir = getattr(args, "datadir", None)
     if datadir and not os.path.isdir(datadir):
         raise SystemExit(f"--datadir: directory not found: {datadir}")
@@ -134,3 +135,55 @@ def _stage_seed(stage: str) -> int:
     """Deterministic per-stage seed term (Python's hash() is randomized per
     process)."""
     return zlib.crc32(stage.encode()) % 97
+
+
+def apply_resume(state, scheduler, args, logger):
+    """--resume <exp>/checkpoint.pt: restore the full train state (in place)
+    and the scheduler.
+
+    Returns ``(state, resume_info)``; ``resume_info`` (None without
+    --resume) carries ``start_epoch`` (training goes on after the
+    checkpointed epoch, with the data seeds and LR schedule an
+    uninterrupted run would have used), the best metrics and epochs, and
+    the best genotypes reloaded from the checkpoint dir's ``best/``
+    pickles."""
+    if not getattr(args, "resume", None):
+        return state, None
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.utils import checkpoint as ckpt
+    extra = ckpt.restore_state(args.resume, state)
+    scheduler.load_state(extra["scheduler"])
+    info = {
+        "start_epoch": int(extra["epoch"]) + 1,
+        "best_metric": float(extra["best_metric"]),
+        "best_test_metric": float(extra["best_test_metric"]),
+        "best_epoch": int(extra["best_epoch"]),
+        "best_test_epoch": int(extra["best_test_epoch"]),
+        "best_genotype": None,
+        "best_test_genotype": None,
+    }
+    best_dir = os.path.join(os.path.dirname(os.path.abspath(args.resume)),
+                            "best")
+    for key, fname in (("best_genotype", "best_genotype.pkl"),
+                       ("best_test_genotype", "best_test_genotype.pkl")):
+        path = os.path.join(best_dir, fname)
+        if os.path.exists(path):
+            info[key] = load_genotype(path)
+    logger.info("Resumed from %s; continuing at epoch %s", args.resume,
+                info["start_epoch"])
+    return state, info
+
+
+def run_test_only(fns, state, loader, snapshot_path):
+    """Test-only mode: load a ``best_*_model.pt`` snapshot into the model,
+    run one eval pass over ``loader(0)``; returns the summed counts on the
+    host (numpy)."""
+    import numpy as np
+
+    from bmnas_tpu_torch.utils import checkpoint as ckpt
+    state.model.load_state_dict(ckpt.load_model(snapshot_path))
+    total = None
+    for b in loader(0):
+        c = fns.eval_step(state, b)
+        total = c if total is None else {k: total[k] + c[k] for k in total}
+    return {k: np.asarray(v.cpu()) for k, v in total.items()}

@@ -173,7 +173,10 @@ class FoundImageTextNet(nn.Module):
                       ) -> "FoundImageTextNet":
         return cls(genotype=_freeze(genotype), **kwargs)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], arch=None
+                ) -> torch.Tensor:
+        """``arch`` is taken and ignored, as in the JAX ``__call__``, so the
+        step functions call every task model alike."""
         image_feats = self.imagenet(batch["image"])
         text_feats = self.textnet(batch["text"])
         feats = list(image_feats[:-1]) + list(text_feats[:-1])

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"found_cell": 0, "node_mixed": 0}
+LAUNCHES: Dict[str, int] = {"attention": 0, "found_cell": 0, "node_mixed": 0}
 
 
 def reset_launches() -> None:

@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -103,3 +104,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_lib_path(name))
         _LIBS[name] = lib
     return lib
+
+
+def bound(name: str, binder: Callable[[ctypes.CDLL], ctypes.CDLL]
+          ) -> ctypes.CDLL:
+    """``load(name)`` with its C interface declared by ``binder``, once."""
+    if name not in _BOUND:
+        _BOUND[name] = binder(load(name))
+    return _BOUND[name]

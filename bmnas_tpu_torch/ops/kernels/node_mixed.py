@@ -35,7 +35,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -211,18 +211,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-
-
-def _lib(name: str, binder) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built at first use and bound by
-    ``binder``."""
-    if name not in _LIBS:
-        from bmnas_tpu_torch.ops.kernels import _build
-        _LIBS[name] = binder(_build.load(name))
-    return _LIBS[name]
-
-
 def launch(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
            p: FoundCellParams, steps_cfg: StepsCfg, multiplier: int,
            eps: float, stream: Optional[int]) -> torch.Tensor:
@@ -267,8 +255,9 @@ def found_node_cell_fused(x: torch.Tensor, y: torch.Tensor,
     _check(x, y, p, steps_cfg, multiplier)
     if x.shape[0] == 0:
         return torch.empty_like(x)
+    from bmnas_tpu_torch.ops.kernels import _build
     with torch.cuda.device(x.device):
-        out = launch(_lib("found_cell", bind), x, y, p, steps_cfg,
+        out = launch(_build.bound("found_cell", bind), x, y, p, steps_cfg,
                      multiplier, eps,
                      torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES["found_cell"] += 1
@@ -446,9 +435,10 @@ def node_mixed_op_fused(x: torch.Tensor, y: torch.Tensor,
     _check_mixed(x, y, gammas, p)
     if x.shape[0] == 0:
         return torch.empty_like(x)
+    from bmnas_tpu_torch.ops.kernels import _build
     with torch.cuda.device(x.device):
-        out = launch_mixed(_lib("node_mixed", bind_mixed), x, y, gammas, p,
-                           eps,
+        out = launch_mixed(_build.bound("node_mixed", bind_mixed), x, y,
+                           gammas, p, eps,
                            torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES["node_mixed"] += 1
     return out

@@ -1,21 +1,29 @@
-"""Epoch loop of the bilevel search.
+"""Epoch loop of the bilevel search and of found retraining.
 
-Port of the streaming path of ``bmnas_tpu/search/loop.py::run_training``
-for ``status='search'``:
+Port of the streaming path of ``bmnas_tpu/search/loop.py::run_training``:
 
-* phases train -> dev every epoch: a weight step on every train batch
-  (the scheduler steps once per batch), an arch step on every dev batch;
+* ``status='search'``: phases train -> dev every epoch: a weight step on
+  every train batch (the scheduler steps once per batch), an arch step on
+  every dev batch. Best-dev tracking: ``<exp>/best/best_model.pt``
+  (state_dict plus the arch tensors) and ``<exp>/best/best_genotype.pkl``.
+* ``status='eval'`` (found retraining, MM-IMDB): phases train -> dev ->
+  test. The dev phase trains weights too (the reference's found loop), so
+  the scheduler steps on dev batches as well; test runs the eval step.
+  Best-test tracking: ``best/best_test_model.pt`` and
+  ``best/best_test_genotype.pkl`` when the test F1 is strictly better.
 * the NaN-loss escape and the NaN-metric one-extra-epoch failsafe;
-* best-dev tracking: ``<exp>/best/best_model.pt`` (state_dict plus the
-  arch tensors) and ``<exp>/best/best_genotype.pkl``;
 * the genotype plot of every epoch at ``<exp>/architectures/epoch_N``;
+* the full-resume checkpoint ``<exp>/checkpoint.pt`` after every epoch
+  (``utils/checkpoint.save_state``), and ``resume_info`` from
+  ``cli/common.apply_resume`` to continue after the checkpointed epoch;
 * the reference's log lines ('{phase} Loss: ..., {f1} F1: ...',
-  'Fusion Model Params: N', ...) and a ``metrics.jsonl`` row per phase.
+  'Fusion Model Params: N', 'Current best dev/test ...') and a
+  ``metrics.jsonl`` row per phase.
 
 Metric counts stay on the device and cross to the host once a phase. The
-JAX loop's device-cache, frame-pool and ``--steps_per_dispatch`` branches,
-its per-epoch resume checkpoint and found retraining (``status='eval'``)
-are later slices (ROADMAP.md Queue 1).
+JAX loop's device-cache, frame-pool, ``--unrolled`` and
+``--steps_per_dispatch`` branches and its profiler are later slices
+(ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ import copy
 import json
 import math
 import os
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -53,6 +61,7 @@ def _fusion_part(name: str) -> bool:
 def run_training(
     *,
     task: str,
+    status: str,                       # 'search' | 'eval'
     fns: StepFunctions,
     state: TrainState,
     scheduler,
@@ -64,25 +73,44 @@ def run_training(
     logger,
     plotter,
     genotype_fn: Callable[[TrainState], Genotype],
+    resume_info: Optional[Dict] = None,  # from cli.common.apply_resume
 ):
-    """Returns (best_dev_f1, best_genotype, state)."""
+    """Returns (best_metric, best_genotype, state): the best dev F1 in
+    search mode, the best test F1 and its genotype in eval mode."""
     best_metric, best_genotype, best_epoch = 0.0, None, 0
-    best_test_metric, best_test_epoch = 0.0, 0  # search runs no test phase
+    best_test_metric, best_test_genotype, best_test_epoch = 0.0, None, 0
+    start_epoch = 0
+    if resume_info:
+        start_epoch = resume_info["start_epoch"]
+        best_metric = resume_info["best_metric"]
+        best_test_metric = resume_info["best_test_metric"]
+        best_epoch = resume_info["best_epoch"]
+        best_test_epoch = resume_info["best_test_epoch"]
+        best_genotype = resume_info["best_genotype"]
+        best_test_genotype = resume_info["best_test_genotype"]
+    phases = ("train", "dev") if status == "search" else (
+        "train", "dev", "test")
+    best = os.path.join(args.save, "best")
 
     failsafe = True
     cont_overloop = 0
     while failsafe:
-        for epoch in range(num_epochs):
+        for epoch in range(start_epoch, num_epochs):
             logger.info("Epoch: {}".format(epoch))
             logger.info("EXP: {}".format(args.save))
-            for phase in ("train", "dev"):
+            for phase in phases:
+                trains_weights = phase == "train" or (
+                    phase == "dev" and status == "eval")
+                arch_steps = status == "search" and phase == "dev"
                 counts_total = None
                 for batch in loaders[phase](epoch):
-                    if phase == "dev":
+                    if arch_steps:
                         counts = fns.arch_step(state, batch)
-                    else:
+                    elif trains_weights:
                         counts = fns.weight_step(state, batch,
                                                  scheduler.step())
+                    else:
+                        counts = fns.eval_step(state, batch)
                     counts_total = _accumulate(counts_total, counts)
                 epoch_loss, epoch_metric = _finalize_metric(
                     counts_total, f1_type, dataset_sizes[phase])
@@ -108,15 +136,23 @@ def run_training(
                     logger.info("Nan loss during training, escaping")
                     return best_metric, best_genotype, state
 
-                if phase == "dev" and epoch_metric > best_metric:
+                if arch_steps and epoch_metric > best_metric:
                     best_metric = epoch_metric
                     best_genotype = copy.deepcopy(genotype)
                     best_epoch = epoch
-                    best = os.path.join(args.save, "best")
                     ckpt.save_model(os.path.join(best, "best_model.pt"),
                                     state.model, state.arch)
                     save_genotype(best_genotype, os.path.join(
                         best, "best_genotype.pkl"))
+
+                if phase == "test" and epoch_metric > best_test_metric:
+                    best_test_metric = epoch_metric
+                    best_test_genotype = copy.deepcopy(genotype)
+                    best_test_epoch = epoch
+                    ckpt.save_model(os.path.join(best, "best_test_model.pt"),
+                                    state.model, state.arch)
+                    save_genotype(best_test_genotype, os.path.join(
+                        best, "best_test_genotype.pkl"))
 
             plotter.plot(genotype,
                          os.path.join(args.save, "architectures",
@@ -128,6 +164,14 @@ def run_training(
             logger.info("Current best test {} F1: {}, at training epoch: {}"
                         .format(f1_type, best_test_metric, best_test_epoch))
 
+            ckpt.save_state(
+                os.path.join(args.save, "checkpoint.pt"), state,
+                extra={"epoch": epoch, "scheduler": scheduler.state(),
+                       "best_metric": best_metric,
+                       "best_test_metric": best_test_metric,
+                       "best_epoch": best_epoch,
+                       "best_test_epoch": best_test_epoch})
+
         # NaN-metric failsafe: train one more epoch
         if math.isnan(best_metric) and num_epochs == 1 and cont_overloop < 1:
             failsafe = True
@@ -138,4 +182,6 @@ def run_training(
 
     if math.isnan(best_metric):
         best_metric = 0.0
-    return best_metric, best_genotype, state
+    if status == "search":
+        return best_metric, best_genotype, state
+    return best_test_metric, best_test_genotype, state

@@ -6,8 +6,8 @@ iteration counter resets and the period multiplies by ``Tm`` when eta
 reaches eta_min) and is evaluated on the host in float64: the restart
 trigger ``eta <= eta_min + 1e-10`` is a comparison that float32 cos()
 would miss. One call per weight step; the eta it returns becomes the
-weight optimizer's learning rate for that step. Restoring a schedule
-(``load_state``) comes with ``--resume`` (ROADMAP.md Queue 1 item 3).
+weight optimizer's learning rate for that step. ``state`` /
+``load_state`` carry a schedule through the ``--resume`` checkpoint.
 """
 from __future__ import annotations
 
@@ -46,12 +46,20 @@ class LRCosineAnnealingScheduler:
         return eta
 
     def state(self) -> dict:
+        """Python floats (eta is a numpy float after a step), so the
+        checkpoint loads with ``torch.load(weights_only=True)``."""
         return {
-            "Ti": self.Ti,
-            "Tcur": self.Tcur,
-            "iteration_counter": self.iteration_counter,
-            "eta": self.eta,
+            "Ti": float(self.Ti),
+            "Tcur": float(self.Tcur),
+            "iteration_counter": float(self.iteration_counter),
+            "eta": float(self.eta),
         }
+
+    def load_state(self, state: dict) -> None:
+        self.Ti = state["Ti"]
+        self.Tcur = state["Tcur"]
+        self.iteration_counter = state["iteration_counter"]
+        self.eta = state["eta"]
 
 
 class FixedScheduler:
@@ -63,3 +71,9 @@ class FixedScheduler:
 
     def step(self) -> float:
         return self.lr
+
+    def state(self) -> dict:
+        return {"lr": self.lr}
+
+    def load_state(self, state: dict) -> None:
+        self.lr = state["lr"]

@@ -52,12 +52,39 @@ line) on any error:
    the median host time of a weight step, an arch step and an eval step at
    B=8, in three rounds, and each step's device busy time, idle share and
    kernel launches from a ``torch.profiler`` trace.
-7. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
+7. found: one epoch of the port's found retraining
+   ``bmnas_tpu_torch.cli.mmimdb_found.main_found --search_exp_dir`` on the
+   search's experiment at the same width (a correlated test split of 22
+   samples, the last batch ragged at 6; the search ignores it). Checks: the
+   eval dir's ``log.txt``, ``metrics.jsonl`` (train, dev and test rows,
+   finite losses), ``checkpoint.pt``, ``best/best_test_model.pt`` and
+   ``best/best_test_genotype.pkl``, test F1 above 0; the found-cell kernel
+   launched 0 times in the train and dev phases (weight steps, train mode)
+   and exactly 2 x test batches in the test phase. Then test-only
+   (``--eval_exp_dir``), which must launch it exactly 2 x test batches and
+   print a finite F1, and the serve CLI on the same eval dir (both F1s
+   printed). Three found weight steps (every parameter) on CUDA and on the
+   CPU from the same weights (64x64 images, dropout off, TF32 off) must give
+   eval logits within 1e-3, the CUDA side through the kernel. Then the
+   found weight step and eval step at B=8 on 160x256 images: host ms in
+   three rounds, device busy ms, idle share, launches and top kernels.
+8. attention vs plain: the blockwise attention kernel against its plain
+   version in fp32 (rtol 2e-4 / atol 2e-5, 1e-3 for scores scaled by 30)
+   and bf16 inputs (2e-2), output fp32, on the JAX kernel test's five
+   shapes, B=8 x L in {16, 512, 4096} at C=192, and ragged Lq != Lk. Times
+   at B=8, C=192 in fp32 (CUDA events, median, L2 flushed) of the kernel,
+   the plain version and ``F.scaled_dot_product_attention(x, y, y)`` (the
+   library yardstick; the port never calls it), beside the bound (the
+   larger of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s). At B=8, L=8192,
+   C=192 the call may raise ``max_memory_allocated`` by at most its output
+   plus 1 MiB: the score matrix never reaches device memory. No entry point
+   of the JAX package calls this kernel; this phase is its only path.
+9. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
-Every kernel must launch on its main path (found_cell: serving; node_mixed:
-the search's eval step): the counts are set to 0 just before each path and
-read just after it.
+Every kernel must launch on its path (found_cell: serving, the found test
+phase and test-only; node_mixed: the search's eval step; attention: phase
+8): the counts are set to 0 just before each path and read just after it.
 """
 from __future__ import annotations
 
@@ -67,6 +94,7 @@ import copy
 import glob
 import io
 import json
+import logging
 import math
 import os
 import shutil
@@ -371,7 +399,6 @@ def write_experiment(root):
     """Synthetic test split + found experiment dir with a seeded snapshot."""
     from bmnas_tpu_torch.data.synthetic import make_mmimdb_synthetic
     from bmnas_tpu_torch.genotype import save_genotype
-    from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
     from bmnas_tpu_torch.utils.checkpoint import save_model
 
     data = os.path.join(root, "data")
@@ -382,22 +409,31 @@ def write_experiment(root):
     os.makedirs(best)
     geno = serve_genotype()
     save_genotype(geno, os.path.join(best, "best_genotype.pkl"))
-    torch.manual_seed(0)
-    model = FoundImageTextNet.from_genotype(geno, device="cpu", **SERVE_CFG)
-    gen = torch.Generator().manual_seed(1)
+    save_model(os.path.join(best, "best_model.pt"), seeded_found_net(0))
+    return data, os.path.join(root, "exp")
+
+
+def seeded_found_net(seed):
+    """The served genotype's found net at the full width on the CPU, VGG
+    convolutions He-initialised (activations stay O(1)), BatchNorm
+    statistics and affines randomized (folding is exercised)."""
+    from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
+    torch.manual_seed(seed)
+    model = FoundImageTextNet.from_genotype(serve_genotype(), device="cpu",
+                                            **SERVE_CFG)
+    gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
-        for name, mod in model.named_modules():
-            if isinstance(mod, torch.nn.Conv2d):  # keep VGG activations O(1)
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv2d):
                 mod.weight.normal_(0.0, math.sqrt(2.0 / (9 * mod.in_channels)),
                                    generator=gen)
                 mod.bias.zero_()
-            if isinstance(mod, torch.nn.BatchNorm1d):  # exercise folding
+            if isinstance(mod, torch.nn.BatchNorm1d):
                 mod.running_mean.normal_(0.0, 0.1, generator=gen)
                 mod.running_var.uniform_(0.5, 1.5, generator=gen)
                 mod.weight.uniform_(0.5, 1.5, generator=gen)
                 mod.bias.normal_(0.0, 0.1, generator=gen)
-    save_model(os.path.join(best, "best_model.pt"), model)
-    return data, os.path.join(root, "exp")
+    return model
 
 
 def serve_once(data, exp, bf16):
@@ -428,6 +464,26 @@ def serve_once(data, exp, bf16):
     if not all(checks.values()):
         raise AssertionError(f"serve (bf16={bf16}) failed {checks}: "
                              f"{result}, launches={launched}")
+    return dict(result, launches=launched)
+
+
+def serve_eval_dir(eval_dir, data):
+    """The serve CLI on a found eval dir (``best_test_*``), fp32."""
+    from bmnas_tpu_torch.cli.serve import main_serve
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    before = LAUNCHES["found_cell"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_serve(["--task", "mmimdb", "--eval_exp_dir", eval_dir,
+                             "--datadir", data, "--batchsize", str(BATCH),
+                             "--num_workers", "4"])
+    sys.stdout.write(buf.getvalue())
+    launched = LAUNCHES["found_cell"] - before
+    if not (result["model"].endswith("best_test_model.pt")
+            and launched == 2 * result["batches"]
+            and result["logits_finite"]):
+        raise AssertionError(f"serve on the eval dir: {result}, "
+                             f"launches={launched}")
     return dict(result, launches=launched)
 
 
@@ -509,7 +565,8 @@ def serve_breakdown(data, exp, dtype, iters=20):
 # ---------------------------------------------------------------------------
 
 SEARCH_CFG = dict(SERVE_CFG)
-SEARCH_COUNTS = {"train": 46, "dev": 22, "test": 0}
+# the search reads train and dev; found retraining and test-only also test
+SEARCH_COUNTS = {"train": 46, "dev": 22, "test": 22}
 
 
 def search_run(root):
@@ -737,15 +794,18 @@ def device_busy_ms(fn, tmp, iters=5):
             [(n[:80], d / iters / 1e3) for n, d in top])
 
 
-def search_step_times(exp, data, device, tmp, iters=10, rounds=3):
-    """Host time of one weight, arch and eval step at B=8 (the step ends in
-    a synchronize), on a dev batch of 160x256 images: the median of
-    ``iters`` steps, in ``rounds`` rounds that take turns over the three
-    steps. Then each step's device busy time and kernel launches from a
-    profiler trace, and the device's idle share of the last round's
-    median."""
-    from bmnas_tpu_torch.cli.mmimdb import batches_on, counts_fn
+def first_batch(data, split, device):
+    from bmnas_tpu_torch.cli.mmimdb import batches_on
     from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
+    (b,) = batches_on(device, [next(iter(MMIMDBDataset(
+        data, split, num_workers=4).batches(BATCH, shuffle=False)))])
+    return b
+
+
+def search_step_times(exp, data, device, tmp):
+    """The search's weight, arch and eval step at B=8 on a dev batch of
+    160x256 images (``step_times``)."""
+    from bmnas_tpu_torch.cli.mmimdb import counts_fn
     from bmnas_tpu_torch.search.bilevel import (
         bce_with_logits,
         build_step_functions,
@@ -753,11 +813,17 @@ def search_step_times(exp, data, device, tmp, iters=10, rounds=3):
     model, arch = search_model(exp, "cpu")
     state = _step_setup(model, arch, device)
     fns = build_step_functions(bce_with_logits, counts_fn)
-    (b,) = batches_on(device, [next(iter(MMIMDBDataset(
-        data, "dev", num_workers=4).batches(BATCH, shuffle=False)))])
-    steps = {"weight_step": lambda: fns.weight_step(state, b, 1e-3),
-             "arch_step": lambda: fns.arch_step(state, b),
-             "eval_step": lambda: fns.eval_step(state, b)}
+    b = first_batch(data, "dev", device)
+    return step_times({"weight_step": lambda: fns.weight_step(state, b, 1e-3),
+                       "arch_step": lambda: fns.arch_step(state, b),
+                       "eval_step": lambda: fns.eval_step(state, b)}, tmp)
+
+
+def step_times(steps, tmp, iters=10, rounds=3):
+    """Host time of each step (it ends in a synchronize): the median of
+    ``iters`` steps, in ``rounds`` rounds that take turns over the steps.
+    Then each step's device busy time and kernel launches from a profiler
+    trace, and the device's idle share of the last round's median."""
     out = {name: {"host_ms_rounds": []} for name in steps}
     for _ in range(rounds):
         for name, fn in steps.items():
@@ -793,6 +859,322 @@ def step_line(v) -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: found retraining, test-only, serve of what it trained
+# ---------------------------------------------------------------------------
+
+class PhaseLaunches(logging.Handler):
+    """The found-cell launch count at the end of each phase of a training
+    run, taken when the loop logs the phase's '<phase> Loss:' line."""
+
+    def __init__(self):
+        super().__init__()
+        self.ends = []
+
+    def emit(self, record):
+        from bmnas_tpu_torch.ops.kernels import LAUNCHES
+        phase, sep, _ = record.getMessage().partition(" Loss:")
+        if sep and phase in ("train", "dev", "test"):
+            self.ends.append((phase, LAUNCHES["found_cell"]))
+
+    def per_phase(self, start):
+        out, prev = {}, start
+        for phase, n in self.ends:
+            out[phase] = out.get(phase, 0) + n - prev
+            prev = n
+        return out
+
+
+def found_run(s_exp, data):
+    """One epoch of ``main_found --search_exp_dir`` on the card; returns
+    (eval dir, best test F1, found-cell launches per phase, seconds)."""
+    from bmnas_tpu_torch.cli.mmimdb_found import main_found
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    logger = logging.getLogger("bmnas_tpu_torch")
+    counter = PhaseLaunches()
+    logger.addHandler(counter)
+    before = LAUNCHES["found_cell"]
+    try:
+        t0 = time.perf_counter()
+        f1 = main_found(["--search_exp_dir", s_exp, "--datadir", data,
+                         "--epochs", "1", "--batchsize", str(BATCH),
+                         "--num_workers", "4"])
+        seconds = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(counter)
+    (eval_dir,) = glob.glob(os.path.join(s_exp, "eval-EXP-*"))
+    return eval_dir, f1, counter.per_phase(before), seconds
+
+
+def check_found_artifacts(eval_dir, f1, per_phase, test_batches):
+    with open(os.path.join(eval_dir, "log.txt")) as f:
+        log_text = f.read()
+    with open(os.path.join(eval_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(r) for r in f]
+    best = os.path.join(eval_dir, "best")
+    checks = {
+        "log.txt train/dev/test lines": all(
+            f"{p} Loss:" in log_text for p in ("train", "dev", "test")),
+        "metrics.jsonl train+dev+test, finite": [r["phase"] for r in rows]
+        == ["train", "dev", "test"]
+        and all(math.isfinite(r["loss"]) for r in rows),
+        "best_test_model.pt": os.path.exists(
+            os.path.join(best, "best_test_model.pt")),
+        "best_test_genotype.pkl": os.path.exists(
+            os.path.join(best, "best_test_genotype.pkl")),
+        "checkpoint.pt": os.path.exists(
+            os.path.join(eval_dir, "checkpoint.pt")),
+        "architectures/epoch_0": bool(glob.glob(os.path.join(
+            eval_dir, "architectures", "epoch_0*"))),
+        "test f1 in (0, 1]": 0.0 < f1 <= 1.0,
+        "found_cell launches: train 0, dev 0, test 2 x batches":
+        per_phase == {"train": 0, "dev": 0, "test": 2 * test_batches},
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"found artifacts: {checks}, launches per "
+                             f"phase {per_phase}")
+    return {"metrics": rows, "best_test_f1": f1,
+            "found_cell_launches_per_phase": per_phase}
+
+
+def test_only(eval_dir, data, test_batches):
+    """``main_found --eval_exp_dir`` on the card: the found-cell kernel
+    launches exactly twice per test batch."""
+    from bmnas_tpu_torch.cli.mmimdb_found import main_found
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    before = LAUNCHES["found_cell"]
+    f1 = main_found(["--eval_exp_dir", eval_dir, "--datadir", data,
+                     "--batchsize", str(BATCH), "--num_workers", "4"])
+    launched = LAUNCHES["found_cell"] - before
+    if not (launched == 2 * test_batches and math.isfinite(f1)):
+        raise AssertionError(f"test-only: f1 {f1}, {launched} found_cell "
+                             f"launches over {test_batches} batches")
+    return {"f1": f1, "launches": launched, "batches": test_batches}
+
+
+FOUND_STEP_ETAS = (1e-5, 9e-6, 8e-6)
+
+
+def found_steps_cuda_vs_cpu(devices=("cuda", "cpu")):
+    """Three found weight steps (every parameter, the VGG-19 included) from
+    the same seeded weights (PyTorch's default init) on CUDA and on the
+    CPU, 64x64 images, dropout off, the first batch padded; then each
+    side's eval logits on a probe batch: on CUDA through the found-cell
+    kernel, on the CPU through its plain version.
+
+    The steps use small learning rates (``FOUND_STEP_ETAS``). Adam moves
+    each of the 20 million weights by about eta whatever the size of its
+    gradient, and from random weights many VGG-19 gradients are at the
+    level of rounding, so at the CLI's eta of 1e-3 three steps part by far
+    more than 1e-3 even between fp32 and fp64 on the CPU alone; at 1e-5
+    they stay well inside it. The train-mode forwards still move the
+    BatchNorm statistics, and with them the logits, by O(1)."""
+    from bmnas_tpu_torch.cli.mmimdb import batches_on, counts_fn
+    from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    from bmnas_tpu_torch.search.bilevel import (
+        TrainState,
+        bce_with_logits,
+        build_step_functions,
+        make_weight_optimizer,
+    )
+    torch.manual_seed(6)
+    model = FoundImageTextNet.from_genotype(serve_genotype(), device="cpu",
+                                            **SERVE_CFG)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    rng = np.random.RandomState(7)
+    host = [_synthetic_batch(rng, (64, 64), valid=BATCH - 2),
+            _synthetic_batch(rng, (64, 64)), _synthetic_batch(rng, (64, 64)),
+            _synthetic_batch(rng, (64, 64))]
+    fns = build_step_functions(bce_with_logits, counts_fn)
+    out, launched = [], []
+    for dev in devices:
+        net = copy.deepcopy(model).to(dev)
+        state = TrainState(model=net, arch=None,
+                           opt_w=make_weight_optimizer(net, (), 1e-4),
+                           opt_arch=None)
+        *train, probe = batches_on(torch.device(dev), host)
+        with torch.no_grad():
+            start = net.eval()(probe).float().cpu().numpy()
+        for b, eta in zip(train, FOUND_STEP_ETAS):
+            fns.weight_step(state, b, eta)
+        before = LAUNCHES["found_cell"]
+        with torch.no_grad():
+            out.append(net.eval()(probe).float().cpu().numpy())
+        launched.append(LAUNCHES["found_cell"] - before)
+    diff = float(np.abs(out[0] - out[1]).max())
+    want_launches = [2 if torch.device(d).type == "cuda" else 0
+                     for d in devices]
+    if not (np.isfinite(out[0]).all() and diff <= 1e-3
+            and launched == want_launches):
+        raise AssertionError(f"found steps: eval logits CUDA vs CPU differ "
+                             f"by {diff}; found_cell launches {launched}")
+    return {"max_abs_diff": diff, "tolerance": 1e-3,
+            "logits_abs_max": float(np.abs(out[1]).max()),
+            "logits_moved": float(np.abs(out[1] - start).max()),
+            "etas": FOUND_STEP_ETAS, "found_cell_launches": launched}
+
+
+def found_step_times(eval_dir, data, device, tmp):
+    """The found weight step (every parameter) and eval step at B=8 on a
+    test batch of 160x256 images, from the retrained snapshot
+    (``step_times``)."""
+    from bmnas_tpu_torch.cli.mmimdb import counts_fn
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
+    from bmnas_tpu_torch.search.bilevel import (
+        TrainState,
+        bce_with_logits,
+        build_step_functions,
+        make_weight_optimizer,
+    )
+    from bmnas_tpu_torch.utils.checkpoint import load_model
+    best = os.path.join(eval_dir, "best")
+    model = FoundImageTextNet.from_genotype(
+        load_genotype(os.path.join(best, "best_test_genotype.pkl")),
+        device="cpu", **SEARCH_CFG)
+    model.load_state_dict(load_model(os.path.join(best,
+                                                  "best_test_model.pt")))
+    model.to(device)
+    state = TrainState(model=model, arch=None,
+                       opt_w=make_weight_optimizer(model, (), 1e-4),
+                       opt_arch=None)
+    fns = build_step_functions(bce_with_logits, counts_fn)
+    b = first_batch(data, "test", device)
+    return step_times({"weight_step": lambda: fns.weight_step(state, b, 1e-3),
+                       "eval_step": lambda: fns.eval_step(state, b)}, tmp)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: attention vs plain
+# ---------------------------------------------------------------------------
+
+# (B, Lq, Lk, C, input scale): the JAX kernel test's five shapes, the
+# MM-IMDB width at three lengths, then ragged Lq != Lk
+ATTN_CASES = [
+    (2, 16, 16, 192, 1.0), (2, 256, 256, 64, 1.0), (1, 100, 100, 64, 1.0),
+    (2, 64, 192, 32, 1.0), (1, 64, 64, 32, 30.0),
+    (8, 16, 16, 192, 1.0), (8, 512, 512, 192, 1.0),
+    (8, 4096, 4096, 192, 1.0),
+    (3, 100, 37, 192, 1.0), (2, 1, 300, 64, 1.0), (4, 77, 1, 8, 1.0),
+    (2, 130, 65, 24, 1.0),
+]
+ATTN_TIMED = (16, 512, 4096)  # L at B=8, C=192, fp32
+
+
+def attention_bound_ms(B, Lq, Lk, Cc, itemsize):
+    """x and y read once in their type, the fp32 output written once;
+    4 B Lq Lk C FLOP (two products), the JAX kernel's cost estimate."""
+    nbytes = itemsize * B * (Lq + Lk) * Cc + 4 * B * Lq * Cc
+    flops = 4 * B * Lq * Lk * Cc
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attention_phase(device):
+    """Every case in fp32 and bf16 against the plain version: one launch
+    each."""
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    from bmnas_tpu_torch.ops.kernels.attention import (
+        blockwise_scaled_dot_attention,
+        reference_attention,
+    )
+    gen = torch.Generator().manual_seed(2)
+    rows = []
+    for B, Lq, Lk, Cc, scale in ATTN_CASES:
+        x32 = (torch.randn(B, Lq, Cc, generator=gen) * scale).to(device)
+        y32 = (torch.randn(B, Lk, Cc, generator=gen) * scale).to(device)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = x32.to(dtype), y32.to(dtype)
+            before = LAUNCHES["attention"]
+            got = blockwise_scaled_dot_attention(x, y)
+            torch.cuda.synchronize()
+            launched = LAUNCHES["attention"] - before
+            want = reference_attention(x, y)
+            if dtype == torch.bfloat16:
+                rtol = atol = 2e-2
+            else:
+                rtol, atol = (2e-4, 2e-5) if scale == 1.0 else (1e-3, 1e-3)
+            err = (got - want).abs()
+            ok = (got.dtype == torch.float32 and got.shape == want.shape
+                  and bool(torch.isfinite(got).all())
+                  and bool((err <= atol + rtol * want.abs()).all()))
+            row = {"B": B, "Lq": Lq, "Lk": Lk, "C": Cc, "scale": scale,
+                   "dtype": str(dtype).split(".")[-1], "launches": launched,
+                   "max_abs_err": float(err.max()), "rtol": rtol,
+                   "atol": atol, "ok": ok}
+            rows.append(row)
+            log("  attention B={B:<2} Lq={Lq:<5} Lk={Lk:<5} C={C:<4} "
+                "x{scale:<3g} {dtype:<8} max_abs_err={max_abs_err:.3g} "
+                "ok={ok}".format(**row))
+            if not ok or launched != 1:
+                raise AssertionError(f"attention disagrees with its plain "
+                                     f"version: {row}")
+    return rows
+
+
+def attention_times(device):
+    """At B=8, C=192, fp32, for each L of ``ATTN_TIMED``: the kernel, the
+    plain version and ``scaled_dot_product_attention`` (CUDA events,
+    median, L2 flushed), beside the bound."""
+    from bmnas_tpu_torch.ops.kernels.attention import (
+        blockwise_scaled_dot_attention,
+        reference_attention,
+    )
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator().manual_seed(4)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    out = {}
+    for Ll in ATTN_TIMED:
+        x = torch.randn(BATCH, Ll, C, generator=gen).to(device)
+        y = torch.randn(BATCH, Ll, C, generator=gen).to(device)
+        t = {"ms": time_ms(lambda: blockwise_scaled_dot_attention(x, y),
+                           flush, True),
+             "plain_ms": time_ms(lambda: reference_attention(x, y), flush,
+                                 True),
+             "library_ms": time_ms(lambda: sdpa(x, y, y), flush, True)}
+        t["bound_ms"], t["bound_by"] = attention_bound_ms(BATCH, Ll, Ll, C, 4)
+        out[Ll] = t
+        log("  attention B=8 L={} C=192 fp32: ms={ms:.4f} plain_ms="
+            "{plain_ms:.4f} library_ms={library_ms:.4f} bound_ms="
+            "{bound_ms:.5f} ({bound_by})".format(Ll, **t))
+    return out
+
+
+def attention_memory(device, B=8, Ll=8192):
+    """The kernel at B=8, Lq=Lk=8192, C=192 fp32 raises the peak of
+    allocated device memory by at most its output plus 1 MiB (the dense
+    scores would take B L^2 4 bytes); its first sample agrees with the
+    plain version."""
+    from bmnas_tpu_torch.ops.kernels.attention import (
+        blockwise_scaled_dot_attention,
+        reference_attention,
+    )
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(B, Ll, C, generator=gen).to(device)
+    y = torch.randn(B, Ll, C, generator=gen).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    out = blockwise_scaled_dot_attention(x, y)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(device) - base
+    limit = out.numel() * 4 + 2**20
+    want = reference_attention(x[:1], y[:1])
+    err = (out[:1] - want).abs()
+    ok_values = bool((err <= 2e-5 + 2e-4 * want.abs()).all())
+    res = {"B": B, "L": Ll, "C": C, "peak_growth_bytes": grew,
+           "limit_bytes": limit, "output_bytes": out.numel() * 4,
+           "dense_scores_bytes": B * Ll * Ll * 4,
+           "first_sample_max_abs_err": float(err.max())}
+    if grew > limit or not ok_values:
+        raise AssertionError(f"attention at L={Ll}: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -822,10 +1204,12 @@ def main(argv=None):
         _build.load(n)
     report["build_s"] = time.perf_counter() - t0
     log(f"[2 build] {names} in {report['build_s']:.1f} s")
+    report["ptxas"] = {}
     for n in names:
         for line in _build.build_log(n).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {n}: {line.strip()}")
+                report["ptxas"].setdefault(n, []).append(line.strip())
 
     log("[3 found_cell vs plain] L=16 C=192")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -890,10 +1274,54 @@ def main(argv=None):
         for k, v in search["steps"].items():
             log(f"  {k} (B=8, 160x256): {step_line(v)}")
         report["search"] = search
+
+        test_batches = -(-SEARCH_COUNTS["test"] // BATCH)
+        log("[7 found] MM-IMDB found net from the search, C=192 L=16, "
+            f"160x256 images, {SEARCH_COUNTS['train']} train + "
+            f"{SEARCH_COUNTS['dev']} dev + {SEARCH_COUNTS['test']} test "
+            f"samples in batches of {BATCH}, one epoch")
+        reset_launches()
+        eval_dir, f1, per_phase, f_seconds = found_run(s_exp, s_data)
+        found = check_found_artifacts(eval_dir, f1, per_phase, test_batches)
+        found["seconds"] = f_seconds
+        found["test_only"] = test_only(eval_dir, s_data, test_batches)
+        main_path_launches["found"] = dict(LAUNCHES)
+        log("  found: {:.1f} s, best test F1 {:.4f}, found_cell launches "
+            "per phase {}; test-only F1 {:.6f} with {} launches over {} "
+            "test batches".format(f_seconds, f1, per_phase,
+                                  found["test_only"]["f1"],
+                                  found["test_only"]["launches"],
+                                  test_batches))
+        found["serve"] = serve_eval_dir(eval_dir, s_data)
+        log("  serve on the eval dir: weighted F1 {:.6f} (test-only "
+            "{:.6f}), {} found_cell launches over {} batches".format(
+                found["serve"]["value"], found["test_only"]["f1"],
+                found["serve"]["launches"], found["serve"]["batches"]))
+        torch.backends.cudnn.allow_tf32 = False
+        found["steps_cuda_vs_cpu"] = found_steps_cuda_vs_cpu()
+        log(f"  3 found weight steps cuda vs cpu: "
+            f"{found['steps_cuda_vs_cpu']}")
+        torch.backends.cudnn.allow_tf32 = True
+        found["steps"] = found_step_times(eval_dir, s_data, device, tmp)
+        for k, v in found["steps"].items():
+            log(f"  found {k} (B=8, 160x256): {step_line(v)}")
+        report["found"] = found
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    log("[8 attention vs plain] fp32 and bf16 inputs, "
+        f"{len(ATTN_CASES)} shapes; times at B=8 C=192 L in {ATTN_TIMED}")
+    reset_launches()
+    attn_rows = attention_phase(device)
+    report["attention"] = attn_rows
+    report["attention_memory"] = attention_memory(device)
+    main_path_launches["attention"] = dict(LAUNCHES)
+    log(f"  attention memory: {report['attention_memory']}")
+    report["attention_times"] = attn_times = attention_times(device)
+
     report["main_path_launches"] = main_path_launches
-    for path, name in (("serve", "found_cell"), ("search", "node_mixed")):
+    for path, name in (("serve", "found_cell"), ("found", "found_cell"),
+                       ("search", "node_mixed"), ("attention", "attention")):
         if main_path_launches[path][name] == 0:
             raise AssertionError(f"kernel {name} never launched on its main "
                                  f"path ({path})")
@@ -909,12 +1337,18 @@ def main(argv=None):
                              if r["dtype"] == dt)
     (mixed,) = [r for r in mixed_rows if "ms" in r and r["B"] == 8
                 and r["dtype"] == "float32"]
+    attn512 = attn_times[512]
     kernels = {"kernels": [{
         "name": "found_cell",
         "route": "cuda",
         "source": "bmnas_tpu_torch/csrc/found_cell.cu",
-        "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:366",
-        "launches": main_path_launches["serve"]["found_cell"],
+        "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:368",
+        "launches": (main_path_launches["serve"]["found_cell"]
+                     + main_path_launches["found"]["found_cell"]),
+        "launches_by_path": {
+            "serve": main_path_launches["serve"]["found_cell"],
+            "found test phase and test-only":
+            main_path_launches["found"]["found_cell"]},
         "max_abs_err": err(rows, "float32"),
         "max_abs_err_bf16": err(rows, "bfloat16"),
         "ms": mean("ms"),
@@ -929,7 +1363,7 @@ def main(argv=None):
         "name": "node_mixed",
         "route": "cuda",
         "source": "bmnas_tpu_torch/csrc/node_mixed.cu",
-        "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:200",
+        "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:201",
         "launches": main_path_launches["search"]["node_mixed"],
         "max_abs_err": err(mixed_rows, "float32"),
         "max_abs_err_bf16": err(mixed_rows, "bfloat16"),
@@ -940,6 +1374,25 @@ def main(argv=None):
         "library_ms": None,
         "call_ms": mixed["call_ms"],
         "plain_call_ms": mixed["plain_call_ms"],
+    }, {
+        "name": "attention",
+        "route": "cuda",
+        "source": "bmnas_tpu_torch/csrc/attention.cu",
+        "replaces": "bmnas_tpu/ops/kernels/attention.py:74",
+        "launches": main_path_launches["attention"]["attention"],
+        "note": "on no path of the JAX package (only its tests call the TPU "
+                "kernel): launches are phase 8's checked calls; times at "
+                "B=8, L=512, C=192, fp32",
+        "max_abs_err": err(attn_rows, "float32"),
+        "max_abs_err_bf16": err(attn_rows, "bfloat16"),
+        "ms": attn512["ms"],
+        "plain_ms": attn512["plain_ms"],
+        "bound_ms": attn512["bound_ms"],
+        "bound_by": attn512["bound_by"],
+        "library_ms": attn512["library_ms"],
+        "by_L": attn_times,
+        "peak_growth_bytes_L8192": report["attention_memory"][
+            "peak_growth_bytes"],
     }]}
     report["kernels"] = kernels["kernels"]
     report["seconds"] = time.perf_counter() - t_start
@@ -948,7 +1401,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    log(f"[7 result] {report['seconds']:.1f} s"
+    log(f"[9 result] {report['seconds']:.1f} s"
         + (f"; full report in {args.out}" if args.out else ""))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -35,12 +35,13 @@ def test_port_imports_no_jax_or_reference():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    for name in ("cli.serve", "cli.mmimdb", "ops.kernels.node_mixed",
+    for name in ("cli.serve", "cli.mmimdb", "cli.mmimdb_found",
+                 "ops.kernels.node_mixed", "ops.kernels.attention",
                  "ops.fusion_ops", "models.supernet", "search.bilevel",
                  "search.loop", "search.scheduler", "utils.experiment",
                  "visualize"):
         assert f"bmnas_tpu_torch.{name}" in res["imported"], name
-    assert len(res["imported"]) >= 27
+    assert len(res["imported"]) >= 33
     bad = [m for m in res["modules"] if _forbidden(m)]
     assert not bad, bad
 
@@ -59,6 +60,7 @@ def test_chip_smoke_imports_no_jax_or_reference():
     names = list(_imports(os.path.join(ROOT, "chip_smoke.py")))
     assert "torch" in names and "bmnas_tpu_torch.cli.serve" in names
     assert "bmnas_tpu_torch.cli.mmimdb" in names
+    assert "bmnas_tpu_torch.cli.mmimdb_found" in names
     assert not [n for n in names if _forbidden(n)]
 
 
@@ -91,7 +93,10 @@ def test_kernel_module_builds_nothing_at_import():
     build happens at the first CUDA launch."""
     from bmnas_tpu_torch.ops.kernels import _build
     assert _build.CSRC.endswith(os.path.join("bmnas_tpu_torch", "csrc"))
-    for src in ("found_cell.cu", "node_mixed.cu", "cell_common.cuh"):
+    for src in ("found_cell.cu", "node_mixed.cu", "attention.cu",
+                "cell_common.cuh"):
         assert os.path.exists(os.path.join(_build.CSRC, src))
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
-    assert not _build._LIBS
+    assert not _build._LIBS and not _build._BOUND
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    assert set(LAUNCHES) == {"attention", "found_cell", "node_mixed"}

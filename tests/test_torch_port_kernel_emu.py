@@ -1,16 +1,18 @@
-"""The fusion-cell CUDA kernels' own code, run on the CPU by emulation.
+"""The port's CUDA kernels' own code, run on the CPU by emulation.
 
 There is no CUDA compiler or card on the test host, so
-``bmnas_tpu_torch/csrc/found_cell.cu`` and ``node_mixed.cu``, with their
-shared ``cell_common.cuh``, are compiled as C++ against stand-in CUDA
+``bmnas_tpu_torch/csrc/found_cell.cu``, ``node_mixed.cu`` and
+``attention.cu``, with their shared ``cell_common.cuh``, are compiled as
+C++ against stand-in CUDA
 headers: one ``std::thread`` per CUDA thread, a ``std::barrier`` for
 ``__syncthreads``, per-warp barriers for the shuffles, ``cp.async`` as a
 plain 16-byte copy, blocks one after another, shared memory allocated at
 exactly the launch's size and filled with NaNs. What it checks is the
 kernels' indexing, tiling, staging and synchronisation order, through the
-port's own ctypes bindings (``node_mixed.bind`` / ``launch`` and
-``bind_mixed`` / ``launch_mixed``), against ``found_node_cell_reference``
-and ``node_mixed_op_reference``. It cannot check timing, memory ordering
+port's own ctypes bindings (``node_mixed.bind`` / ``launch``,
+``bind_mixed`` / ``launch_mixed`` and ``attention.bind`` / ``launch``),
+against ``found_node_cell_reference``, ``node_mixed_op_reference`` and
+``reference_attention``. It cannot check timing, memory ordering
 on the card or the compiler's output; ``chip_smoke.py`` does that. Skips
 where there is no ``g++``.
 """
@@ -25,6 +27,7 @@ import pytest
 import torch
 
 from bmnas_tpu_torch.ops.kernels import _build
+from bmnas_tpu_torch.ops.kernels import attention as tat
 from bmnas_tpu_torch.ops.kernels import node_mixed as tnm
 
 CUDA_RUNTIME_H = r"""
@@ -179,10 +182,14 @@ def _emulated_source(src: str) -> str:
     return '#include "cuda_runtime.h"\n' + src
 
 
+KERNELS = ("found_cell", "node_mixed", "attention")
+
+
 @pytest.fixture(scope="module")
 def emu_libs(tmp_path_factory):
-    """{'found_cell': lib, 'node_mixed': lib}: both kernels and the
-    emulated runtime in one library, bound with the port's bindings."""
+    """{'found_cell': lib, 'node_mixed': lib, 'attention': lib}: the three
+    kernels and the emulated runtime in one library, bound with the port's
+    bindings."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to compile the kernels' CPU emulation")
@@ -191,19 +198,20 @@ def emu_libs(tmp_path_factory):
              "emu_runtime.cpp": EMU_RUNTIME_CPP}
     with open(os.path.join(_build.CSRC, "cell_common.cuh")) as f:
         files["cell_common.cuh"] = _emulated_header(f.read())
-    for name in ("found_cell", "node_mixed"):
+    for name in KERNELS:
         with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
             files[f"{name}_emu.cpp"] = _emulated_source(f.read())
     for name, text in files.items():
         (d / name).write_text(text)
     so = d / "libcell_kernels_emu.so"
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                    f"-I{d}", "-o", str(so), str(d / "found_cell_emu.cpp"),
-                    str(d / "node_mixed_emu.cpp"),
+                    f"-I{d}", "-o", str(so),
+                    *[str(d / f"{name}_emu.cpp") for name in KERNELS],
                     str(d / "emu_runtime.cpp"), "-lpthread"],
                    check=True, capture_output=True, timeout=300)
     return {"found_cell": tnm.bind(ctypes.CDLL(str(so))),
-            "node_mixed": tnm.bind_mixed(ctypes.CDLL(str(so)))}
+            "node_mixed": tnm.bind_mixed(ctypes.CDLL(str(so))),
+            "attention": tat.bind(ctypes.CDLL(str(so)))}
 
 
 @pytest.fixture(scope="module")
@@ -355,3 +363,38 @@ def test_node_mixed_refuses_width(emu_libs):
     with pytest.raises(RuntimeError, match="launch failed"):
         tnm.launch_mixed(emu_libs["node_mixed"], x, x, torch.ones(4) / 4, p,
                          1e-5, None)
+
+
+# ---------------------------------------------------------------------------
+# attention.cu
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,Lq,Lk,scale", [
+    (2, 5, 3, 1.0),      # Lk and Lq below one tile, Lq != Lk
+    (1, 70, 130, 1.0),   # two query tiles, three key tiles, both ragged
+    (1, 9, 67, 30.0),    # large scores across a ragged key tile
+], ids=["short", "ragged-tiles", "x30"])
+def test_attention_matches_reference(emu_libs, B, Lq, Lk, scale, dtype):
+    """C=24 (six channel quads, not a power of two) through the port's
+    binding against ``reference_attention`` on the same inputs; fp32
+    output whatever the input type."""
+    gen = torch.Generator().manual_seed(Lq * 1000 + Lk)
+    x = (torch.randn(B, Lq, 24, generator=gen) * scale).to(dtype)
+    y = (torch.randn(B, Lk, 24, generator=gen) * scale).to(dtype)
+    tat._check(x, y, 128, 128)
+    got = tat.launch(emu_libs["attention"], x, y, None)
+    want = tat.reference_attention(x, y)
+    assert got.dtype == torch.float32 and got.shape == (B, Lq, 24)
+    assert torch.isfinite(got).all()
+    # the JAX kernel test's tolerances: 2e-4 / 2e-5, 1e-3 for the x30 case
+    rtol, atol = (2e-4, 2e-5) if scale == 1.0 else (1e-3, 1e-3)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def test_attention_refuses_width(emu_libs):
+    """The C function refuses C=12; the binding raises."""
+    x = torch.randn(1, 4, 12)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tat.launch(emu_libs["attention"], x, x, None)

@@ -293,6 +293,22 @@ def test_fixed_scheduler_matches_jax():
     j, t = J(3e-4), FixedScheduler(3e-4)
     assert [t.step() for _ in range(3)] == [j.step() for _ in range(3)]
     assert t.eta == j.eta == 3e-4
+    t.load_state(J(5e-4).state())
+    assert t.state() == {"lr": 5e-4} and t.step() == 5e-4
+
+
+def test_scheduler_load_state_resumes_jax_schedule():
+    """A schedule restored from the JAX package's state mid-period (one
+    restart done) goes on exactly as the JAX one does."""
+    from bmnas_tpu.search.scheduler import LRCosineAnnealingScheduler as J
+    from bmnas_tpu_torch.search.scheduler import LRCosineAnnealingScheduler
+    j = J(1e-3, 1e-6, 1, 2, 3)
+    for _ in range(5):
+        j.step()
+    t = LRCosineAnnealingScheduler(1e-3, 1e-6, 1, 2, 3)
+    t.load_state(j.state())
+    assert [t.step() for _ in range(10)] == [j.step() for _ in range(10)]
+    assert t.state() == j.state()
 
 
 def test_init_arch_params_shapes_and_scale():
@@ -365,9 +381,14 @@ def test_main_search_cpu(tmp_path, monkeypatch):
     ["--data_backend", "grain"], ["--profile_dir", "x"], ["--parallel"]],
     ids=lambda f: f[0])
 def test_unported_flags_are_refused(flags, tmp_path, monkeypatch):
+    """Each flag is refused before the exp dir exists. ``--resume`` is
+    ported now: a path that does not exist is refused as a missing
+    checkpoint (``tests/test_torch_port_found.py`` resumes real ones)."""
     from bmnas_tpu_torch.cli.mmimdb import main_search
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="not ported yet.*ROADMAP.md"):
+    match = ("--resume: checkpoint not found" if flags[0] == "--resume"
+             else "not ported yet.*ROADMAP.md")
+    with pytest.raises(SystemExit, match=match):
         main_search(["--datadir", str(tmp_path), "--device", "cpu", *flags])
     assert not os.path.exists("final_exp")
 
