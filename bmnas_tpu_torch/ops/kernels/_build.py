@@ -27,8 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_BOUND: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -96,19 +95,13 @@ def build_all(names: Iterable[str]) -> None:
             raise RuntimeError("\n".join(errors))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(_lib_path(name))
-        _LIBS[name] = lib
-    return lib
-
-
-def bound(name: str, binder: Callable[[ctypes.CDLL], ctypes.CDLL]
-          ) -> ctypes.CDLL:
-    """``load(name)`` with its C interface declared by ``binder``, once."""
-    if name not in _BOUND:
-        _BOUND[name] = binder(load(name))
-    return _BOUND[name]
+def load(name: str, binder: Callable[[ctypes.CDLL], ctypes.CDLL]
+         ) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed, with
+    its C interface declared by ``binder`` once, when it is first loaded."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = _LIBS[name] = binder(ctypes.CDLL(_lib_path(name)))
+        return lib

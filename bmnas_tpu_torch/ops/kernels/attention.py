@@ -114,7 +114,7 @@ def blockwise_scaled_dot_attention(x: torch.Tensor, y: torch.Tensor,
         return torch.empty(x.shape, dtype=torch.float32, device=x.device)
     from bmnas_tpu_torch.ops.kernels import _build
     with torch.cuda.device(x.device):
-        out = launch(_build.bound("attention", bind), x, y,
+        out = launch(_build.load("attention", bind), x, y,
                      torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES["attention"] += 1
     return out

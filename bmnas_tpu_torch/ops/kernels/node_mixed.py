@@ -257,7 +257,7 @@ def found_node_cell_fused(x: torch.Tensor, y: torch.Tensor,
         return torch.empty_like(x)
     from bmnas_tpu_torch.ops.kernels import _build
     with torch.cuda.device(x.device):
-        out = launch(_build.bound("found_cell", bind), x, y, p, steps_cfg,
+        out = launch(_build.load("found_cell", bind), x, y, p, steps_cfg,
                      multiplier, eps,
                      torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES["found_cell"] += 1
@@ -437,7 +437,7 @@ def node_mixed_op_fused(x: torch.Tensor, y: torch.Tensor,
         return torch.empty_like(x)
     from bmnas_tpu_torch.ops.kernels import _build
     with torch.cuda.device(x.device):
-        out = launch_mixed(_build.bound("node_mixed", bind_mixed), x, y,
+        out = launch_mixed(_build.load("node_mixed", bind_mixed), x, y,
                            gammas, p, eps,
                            torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES["node_mixed"] += 1

@@ -114,6 +114,7 @@ def run_training(
                     counts_total = _accumulate(counts_total, counts)
                 epoch_loss, epoch_metric = _finalize_metric(
                     counts_total, f1_type, dataset_sizes[phase])
+                # chip_smoke.py's PhaseLaunches keys on '<phase> Loss:'.
                 logger.info("{} Loss: {:.4f}, {} F1: {:.4f}".format(
                     phase, epoch_loss, f1_type, epoch_metric))
                 with open(os.path.join(args.save, "metrics.jsonl"),

@@ -69,8 +69,9 @@ line) on any error:
    found weight step and eval step at B=8 on 160x256 images: host ms in
    three rounds, device busy ms, idle share, launches and top kernels.
 8. attention vs plain: the blockwise attention kernel against its plain
-   version in fp32 (rtol 2e-4 / atol 2e-5, 1e-3 for scores scaled by 30)
-   and bf16 inputs (2e-2), output fp32, on the JAX kernel test's five
+   version in fp32 and bf16 inputs (rtol 2e-4 / atol 2e-5, 1e-3 for scores
+   scaled by 30; both sides read the same values), output fp32, on the
+   JAX kernel test's five
    shapes, B=8 x L in {16, 512, 4096} at C=192, and ragged Lq != Lk. Times
    at B=8, C=192 in fp32 (CUDA events, median, L2 flushed) of the kernel,
    the plain version and ``F.scaled_dot_product_attention(x, y, y)`` (the
@@ -864,7 +865,11 @@ def step_line(v) -> str:
 
 class PhaseLaunches(logging.Handler):
     """The found-cell launch count at the end of each phase of a training
-    run, taken when the loop logs the phase's '<phase> Loss:' line."""
+    run, taken when the loop logs the phase's '<phase> Loss:' line.
+
+    This depends on the wording of that line in ``search/loop.py``. If it
+    changes, no phase is recorded and ``check_found_artifacts`` fails, since
+    it wants exactly {train: 0, dev: 0, test: 2 x batches}."""
 
     def __init__(self):
         super().__init__()
@@ -1093,10 +1098,9 @@ def attention_phase(device):
             torch.cuda.synchronize()
             launched = LAUNCHES["attention"] - before
             want = reference_attention(x, y)
-            if dtype == torch.bfloat16:
-                rtol = atol = 2e-2
-            else:
-                rtol, atol = (2e-4, 2e-5) if scale == 1.0 else (1e-3, 1e-3)
+            # Both sides read the same bf16 values and accumulate in fp32,
+            # so bf16 is held to the fp32 tolerances.
+            rtol, atol = (2e-4, 2e-5) if scale == 1.0 else (1e-3, 1e-3)
             err = (got - want).abs()
             ok = (got.dtype == torch.float32 and got.shape == want.shape
                   and bool(torch.isfinite(got).all())
@@ -1200,8 +1204,6 @@ def main(argv=None):
     t0 = time.perf_counter()
     names = sorted(LAUNCHES)
     _build.build_all(names)
-    for n in names:
-        _build.load(n)
     report["build_s"] = time.perf_counter() - t0
     log(f"[2 build] {names} in {report['build_s']:.1f} s")
     report["ptxas"] = {}
