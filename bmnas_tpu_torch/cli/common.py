@@ -28,8 +28,19 @@ NOT_PORTED = {
                             "Queue 1 item 6, data-path infrastructure"),
     "--data_backend grain": (lambda a: a.data_backend == "grain",
                              "Queue 1 item 6, data-path infrastructure"),
+    "--h2d_streams": (lambda a: a.h2d_streams != 1,
+                      "Queue 1 item 6, data-path infrastructure"),
+    # 0 (in-process) is taken and ignored, as the JAX package does with the
+    # threads backend
+    "--grain_workers": (lambda a: a.grain_workers > 0,
+                        "Queue 1 item 6, data-path infrastructure"),
     "--parallel": (lambda a: a.parallel,
                    "Queue 1 item 7, multi-device"),
+    # the serve CLI's top parser (cli/serve.py)
+    "--export": (lambda a: getattr(a, "export", None) is not None,
+                 "Queue 1 item 10, torch.export"),
+    "--from_export": (lambda a: getattr(a, "from_export", None) is not None,
+                      "Queue 1 item 10, torch.export"),
 }
 
 
@@ -101,11 +112,17 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
                         help='(not ported yet) device-resident dataset')
     parser.add_argument('--steps_per_dispatch', type=int, default=1,
                         help='(not ported yet) steps fused per dispatch')
+    parser.add_argument('--h2d_streams', type=int, default=1,
+                        help='(not ported yet) concurrent host->device '
+                             'transfer streams for streamed batches')
     parser.add_argument('--unrolled', action='store_true', default=False,
                         help='(not ported yet) second-order arch steps')
     parser.add_argument('--data_backend', type=str, default='threads',
                         choices=['threads', 'grain'],
                         help='host input pipeline (grain: not ported yet)')
+    parser.add_argument('--grain_workers', type=int, default=0,
+                        help='grain worker processes (0 = in-process; '
+                             'above 0 not ported yet)')
 
 
 def model_kwargs_from_args(args) -> dict:
@@ -117,12 +134,19 @@ def model_kwargs_from_args(args) -> dict:
                 num_outputs=args.num_outputs, drpt=args.drpt)
 
 
+def refuse_not_ported(args, flags=tuple(NOT_PORTED)) -> None:
+    """Raise SystemExit naming the ROADMAP.md item of the first of ``flags``
+    that ``args`` sets to another value than its default."""
+    for flag in flags:
+        is_set, item = NOT_PORTED[flag]
+        if is_set(args):
+            raise SystemExit(f"{flag}: not ported yet (ROADMAP.md {item})")
+
+
 def fail_fast_checks(args) -> None:
     """Validate host-side arguments before any model is built; refuse the
     flags the port does not have yet."""
-    for flag, (is_set, item) in NOT_PORTED.items():
-        if is_set(args):
-            raise SystemExit(f"{flag}: not ported yet (ROADMAP.md {item})")
+    refuse_not_ported(args)
     resume = getattr(args, "resume", None)
     if resume and not os.path.exists(resume):
         raise SystemExit(f"--resume: checkpoint not found: {resume}")

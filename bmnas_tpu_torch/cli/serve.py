@@ -61,8 +61,9 @@ def main_serve(argv=None):
                                               "(PyTorch port)")
     top.add_argument("--task", choices=["mmimdb", "ntu", "ego"],
                      required=True)
-    top.add_argument("--eval_exp_dir", required=True,
-                     help="experiment dir with best/{*genotype.pkl,*model.pt}")
+    top.add_argument("--eval_exp_dir", default=None,
+                     help="experiment dir with best/{*genotype.pkl,*model.pt}"
+                          " (required)")
     top.add_argument("--model", default=None,
                      help="explicit snapshot path (default: best/ lookup)")
     top.add_argument("--split", default="test",
@@ -72,11 +73,20 @@ def main_serve(argv=None):
     top.add_argument("--device", default=None,
                      help="torch device (default: the current CUDA device; "
                           "'cpu' must be asked for)")
+    top.add_argument("--export", default=None, metavar="PATH",
+                     help="(not ported yet) write an exported program "
+                          "instead of serving")
+    top.add_argument("--from_export", default=None, metavar="PATH",
+                     help="(not ported yet) serve from an exported program")
     args0, rest = top.parse_known_args(argv)
     if args0.task in _LATER_TASKS:
         raise NotImplementedError(
             f"--task {args0.task}: not ported yet ({_LATER_TASKS[args0.task]}"
             ", ROADMAP.md Queue 1)")
+    from bmnas_tpu_torch.cli.common import refuse_not_ported
+    refuse_not_ported(args0, ("--export", "--from_export"))
+    if args0.eval_exp_dir is None:
+        raise SystemExit("--eval_exp_dir is required")
 
     from bmnas_tpu_torch.device import resolve_device
     device = resolve_device(args0.device)

@@ -1,6 +1,7 @@
-// Device functions shared by the fusion-cell kernels (found_cell.cu,
-// node_mixed.cu): one block per sample, every intermediate state in shared
-// memory in fp32.
+// Device functions shared by the fusion-cell kernels: found_cell.cu (one
+// block per sample, every intermediate state in shared memory in fp32)
+// uses all of them; node_mixed.cu and attention.cu the loads and stores
+// and the cp.async copies.
 //
 //   * four-element loads and stores of fp32 or bf16 storage;
 //   * cp.async copies (weights stream through shared memory in K-tiles);

@@ -50,6 +50,9 @@ FUSABLE_EDGES = ("skip", "none")
 MAX_STEPS = 4  # kMaxSteps in csrc/found_cell.cu
 MAX_C = 256  # two threads per channel, at most 512 a block (found_cell.cu)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+# rows of one mixed-op block: 8 work units of two 16-row tiles (and three
+# 16-column tiles), one a GEMM warp (csrc/node_mixed.cu)
+MIXED_MAX_L = 256
 
 StepsCfg = Tuple[Tuple[int, Tuple[bool, int], Tuple[bool, int]], ...]
 
@@ -385,31 +388,59 @@ def bind_mixed(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.node_mixed_forward.argtypes = [
         ci, vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(vp), ctypes.c_float,
-        vp]
+        ci, ci, vp]
     lib.node_mixed_forward.restype = ci
     lib.node_mixed_smem_bytes.argtypes = [ci, ci, ci]
     lib.node_mixed_smem_bytes.restype = ctypes.c_size_t
+    lib.node_mixed_geometry.argtypes = [ci, ci, ci, ci, ci, ci,
+                                        ctypes.POINTER(ci)]
+    lib.node_mixed_geometry.restype = ci
     lib.node_mixed_error_string.argtypes = [ci]
     lib.node_mixed_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def mixed_geometry(lib: ctypes.CDLL, B: int, L: int, C: int, itemsize: int,
+                   samples_per_block: int = 0, cols_per_block: int = 0
+                   ) -> dict:
+    """The launch geometry ``node_mixed_forward`` takes for a call: samples
+    and output columns a block, weight rows a K-tile, K-tiles in shared
+    memory at once (all of them when the whole weight slab fits), blocks,
+    blocks an SM holds, and bytes of shared memory a block. 0 lets the
+    launcher pick, as the wrapper does."""
+    geom = (ctypes.c_int * 7)()
+    rc = lib.node_mixed_geometry(B, L, C, itemsize, samples_per_block,
+                                 cols_per_block, geom)
+    if rc != 0:
+        raise ValueError(f"node_mixed: no geometry hosts B={B}, L={L}, "
+                         f"C={C}, S={samples_per_block}, "
+                         f"nt={cols_per_block}")
+    return dict(zip(("samples_per_block", "cols_per_block", "k_tile",
+                     "k_tiles_resident", "blocks", "blocks_per_sm",
+                     "smem_bytes"), geom))
+
+
 def launch_mixed(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
                  gammas: torch.Tensor, p: NodeMixedParams, eps: float,
-                 stream: Optional[int]) -> torch.Tensor:
+                 stream: Optional[int], samples_per_block: int = 0,
+                 cols_per_block: int = 0) -> torch.Tensor:
     """Call ``node_mixed_forward`` of a bound library on checked tensors
-    and return the output; raises if the launch returns an error."""
+    and return the output; raises if the launch returns an error.
+    ``samples_per_block`` (1, 2 or 4) and ``cols_per_block`` (16 or 32)
+    fix the geometry; 0 lets the launcher pick from B."""
     B, L, C = x.shape
     smem = lib.node_mixed_smem_bytes(L, C, x.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"node_mixed: L={L}, C={C} needs {smem} B of "
-                         f"shared memory > {SMEM_LIMIT}")
+    if smem > SMEM_LIMIT or L > MIXED_MAX_L:
+        raise ValueError(f"node_mixed: L={L}, C={C} does not fit one block "
+                         f"({smem} B of shared memory, at most "
+                         f"{SMEM_LIMIT}; L at most {MIXED_MAX_L})")
     out = torch.empty_like(x)
     ptrs = (ctypes.c_void_p * 6)(*[t.data_ptr() for t in p.tensors()])
     dtype_code = 0 if x.dtype == torch.float32 else 1
     rc = lib.node_mixed_forward(
         dtype_code, x.data_ptr(), y.data_ptr(), gammas.data_ptr(),
-        out.data_ptr(), B, L, C, ptrs, float(eps), stream)
+        out.data_ptr(), B, L, C, ptrs, float(eps), samples_per_block,
+        cols_per_block, stream)
     if rc != 0:
         raise RuntimeError("node_mixed kernel launch failed: "
                            + lib.node_mixed_error_string(rc).decode())

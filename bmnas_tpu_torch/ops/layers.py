@@ -160,6 +160,11 @@ class ReshapeInputLayerMMIMDB(_ProjectBNReLU):
 
     ``(B, C_in)`` vectors are 1x1 maps, so pooling replicates them into all
     L bins, as the reference's AdaptiveMaxPool2d does on a (C, 1, 1) map.
+    Here they are replicated by ``expand``: the same values, and a backward
+    that sums the L gradients by a reduction. The pool's CUDA backward adds
+    them with atomics in no fixed order, so two runs of found retraining
+    (which trains the text backbone through this layer) would part in the
+    last bits.
     """
 
     def __init__(self, C_in: int, C: int, L: int, drpt: float, device=None,
@@ -173,8 +178,8 @@ class ReshapeInputLayerMMIMDB(_ProjectBNReLU):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, C_in = x.shape[0], x.shape[-1]
         if x.dim() == 2:
-            x = x[:, None, None, :]
-        elif x.dim() == 3:
+            return self.project(x[:, None, :].expand(B, self.L, C_in))
+        if x.dim() == 3:
             x = x[:, :, None, :]
         x = adaptive_max_pool_2d(x, (self.pool_size, self.pool_size))
         return self.project(x.reshape(B, self.L, C_in))

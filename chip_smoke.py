@@ -20,11 +20,14 @@ line) on any error:
    plain version, beside each configuration's bound (the larger of bytes /
    3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic type).
 4. node_mixed vs plain: the supernet's mixed-op kernel against its plain
-   version at L=16, C=192, B in {8, 37, 96}, fp32 and bf16 (the same
+   version at L=16, C=192, B in {5, 8, 37, 96}, fp32 and bf16 (the same
    tolerances), with softmaxed random branch weights and each of the four
    one-hot ones, for x and y two tensors and one tensor. Times as in
    phase 3 at B=8 and B=96 for the supernet's case (x is y, softmaxed
-   weights).
+   weights), beside the bound and a second bound at the tensor cores'
+   rate, with the launch geometry the launcher picked. Then, at B=37 and
+   B=96, one sample a block against four samples a block (the columns a
+   block as the launcher picks them for each), each checked and timed.
 5. serve: a synthetic MM-IMDB test split (36 samples of 160x256 images: four
    full batches of 8 and one ragged batch of 4) and a found experiment dir
    (genotype pickle + seeded snapshot), served through the port's CLI
@@ -68,7 +71,17 @@ line) on any error:
    eval logits within 1e-3, the CUDA side through the kernel. Then the
    found weight step and eval step at B=8 on 160x256 images: host ms in
    three rounds, device busy ms, idle share, launches and top kernels.
-8. attention vs plain: the blockwise attention kernel against its plain
+8. resume: ``--resume`` on the card, for the search and for found
+   retraining (on phase 6's genotype): the same seed, two epochs straight
+   against one epoch and ``--resume`` for the second, on splits of 10
+   samples (a full batch and a ragged one of 2) of 160x256 images at the
+   full width, with cuDNN and PyTorch on deterministic algorithms
+   (``CUBLAS_WORKSPACE_CONFIG=:4096:8``; the flags are restored after the
+   phase). The resumed run must run the second epoch only, and the final
+   parameters, BatchNorm statistics and the second epoch's losses and F1
+   must agree within 1e-6. The largest differences are printed, with the
+   ops that ran without a deterministic CUDA kernel.
+9. attention vs plain: the blockwise attention kernel against its plain
    version in fp32 and bf16 inputs (rtol 2e-4 / atol 2e-5, 1e-3 for scores
    scaled by 30; both sides read the same values), output fp32, on the
    JAX kernel test's five
@@ -80,12 +93,12 @@ line) on any error:
    C=192 the call may raise ``max_memory_allocated`` by at most its output
    plus 1 MiB: the score matrix never reaches device memory. No entry point
    of the JAX package calls this kernel; this phase is its only path.
-9. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
+10. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every kernel must launch on its path (found_cell: serving, the found test
 phase and test-only; node_mixed: the search's eval step; attention: phase
-8): the counts are set to 0 just before each path and read just after it.
+9): the counts are set to 0 just before each path and read just after it.
 """
 from __future__ import annotations
 
@@ -110,6 +123,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12     # H100 SXM fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12    # H100 SXM tensor cores, dense TF32
+BF16_FLOP_PER_S = 989e12    # H100 SXM tensor cores, dense bf16
 L, C = 16, 192
 # (node_steps, node_multiplier, inner ops) of the kernel-vs-plain phase
 CONFIGS = [
@@ -313,20 +328,44 @@ def mixed_bound_ms(B, itemsize, same):
                                        else "operations")
 
 
+def mixed_tc_bound_ms(B, itemsize, same):
+    """A second bound beside ``mixed_bound_ms``: the same bytes and FLOP,
+    the FLOP at the tensor cores' dense rate for the storage type (TF32
+    for fp32, bf16 for bf16). The kernel runs 3xTF32, three TF32 products
+    for each fp32 one, so for fp32 this bound is not reachable."""
+    nbytes, flops = mixed_work(B, itemsize, same)
+    rate = TF32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+    return max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
+
+
+# B of phase 4; B=5 is smaller than any grid the launcher could fill
+MIXED_BATCHES = (5, 8, 37, 96)
+# (B, label, samples a block): one sample a block against four, the columns
+# a block and the K-tiles as the launcher picks them for that S, on the
+# supernet's call (x is y, softmaxed gammas)
+MIXED_PAIRS = [(B, label, S) for B in (37, 96)
+               for label, S in (("one sample a block", 1),
+                                ("four samples a block", 4))]
+
+
 def mixed_phase(device):
-    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES, _build
     from bmnas_tpu_torch.ops.kernels.node_mixed import (
+        bind_mixed,
+        mixed_geometry,
         node_mixed_op_fused,
         node_mixed_op_reference,
     )
+    lib = _build.load("node_mixed", bind_mixed)
     gen = torch.Generator().manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         p = mixed_params(gen, dtype, device)
-        for B in (8, 37, 96):
+        for B in MIXED_BATCHES:
             x = torch.randn(B, L, C, generator=gen).to(device, dtype)
             y = torch.randn(B, L, C, generator=gen).to(device, dtype)
+            geom = mixed_geometry(lib, B, L, C, x.element_size())
             for gk in MIXED_GAMMAS:
                 g = (torch.randn(4, generator=gen).softmax(0)
                      if gk == "softmax" else torch.eye(4)[
@@ -345,7 +384,7 @@ def mixed_phase(device):
                         (err <= tol + tol * wf.abs()).all())
                     row = {"gammas": gk, "x_is_y": same, "B": B,
                            "dtype": str(dtype).split(".")[-1],
-                           "launches": launched,
+                           "geometry": geom, "launches": launched,
                            "max_abs_err": float(err.max()),
                            "tolerance": tol, "ok": ok}
                     if B in (8, 96) and gk == "softmax" and same:
@@ -359,6 +398,8 @@ def mixed_phase(device):
                         row["plain_call_ms"] = time_ms(plain, flush, False)
                         row["bound_ms"], row["bound_by"] = mixed_bound_ms(
                             B, x.element_size(), True)
+                        row["tc_bound_ms"] = mixed_tc_bound_ms(
+                            B, x.element_size(), True)
                     rows.append(row)
                     if not ok or launched != 1:
                         raise AssertionError(f"node_mixed disagrees with "
@@ -367,13 +408,56 @@ def mixed_phase(device):
                         log("  node_mixed B={B:<3} {dtype:<8} x is y, "
                             "softmaxed gammas: ms={ms:.4f} "
                             "plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f}"
-                            " ({bound_by}) call_ms={call_ms:.4f} "
-                            "plain_call_ms={plain_call_ms:.4f}".format(**row))
+                            " ({bound_by}) tc_bound_ms={tc_bound_ms:.5f} "
+                            "call_ms={call_ms:.4f} "
+                            "plain_call_ms={plain_call_ms:.4f} "
+                            "geometry={geometry}".format(**row))
     for dt in ("float32", "bfloat16"):
         log("  node_mixed {}: {} checks ok, max_abs_err {:.3g}".format(
             dt, sum(r["dtype"] == dt for r in rows),
             max(r["max_abs_err"] for r in rows if r["dtype"] == dt)))
-    return rows
+    return rows, mixed_pairs(lib, device, gen, flush)
+
+
+def mixed_pairs(lib, device, gen, flush):
+    """``MIXED_PAIRS``: each geometry against the plain version (the same
+    tolerances) and timed, in fp32 and bf16. These launches go straight to
+    the library and are not counted."""
+    from bmnas_tpu_torch.ops.kernels.node_mixed import (
+        launch_mixed,
+        mixed_geometry,
+        node_mixed_op_reference,
+    )
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        p = mixed_params(gen, dtype, device)
+        g = torch.randn(4, generator=gen).softmax(0).to(device)
+        for B, label, S in MIXED_PAIRS:
+            x = torch.randn(B, L, C, generator=gen).to(device, dtype)
+            stream = torch.cuda.current_stream(device).cuda_stream
+
+            def kern():
+                return launch_mixed(lib, x, x, g, p, 1e-5, stream, S)
+            got = kern().float()
+            want = node_mixed_op_reference(x, x, g, p).float()
+            err = (got - want).abs()
+            tol = TOLS[dtype]
+            row = {"B": B, "dtype": str(dtype).split(".")[-1],
+                   "label": label,
+                   "geometry": mixed_geometry(lib, B, L, C,
+                                              x.element_size(), S),
+                   "max_abs_err": float(err.max()), "tolerance": tol,
+                   "ok": bool(torch.isfinite(got).all())
+                   and bool((err <= tol + tol * want.abs()).all()),
+                   "ms": time_ms(kern, flush, True)}
+            out.append(row)
+            log("  node_mixed B={B:<3} {dtype:<8} {label}: ms={ms:.4f} "
+                "max_abs_err={max_abs_err:.3g} ok={ok} "
+                "geometry={geometry}".format(**row))
+            if not row["ok"]:
+                raise AssertionError(f"node_mixed ({label}) disagrees with "
+                                     f"its plain version: {row}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1052,7 +1136,134 @@ def found_step_times(eval_dir, data, device, tmp):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: attention vs plain
+# phase 8: --resume on the card
+# ---------------------------------------------------------------------------
+
+# the smallest splits that take both epochs through a full batch and a
+# ragged one (2 samples) in every phase
+RESUME_COUNTS = {"train": 10, "dev": 10, "test": 10}
+RESUME_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN and PyTorch on their deterministic kernels (an op that has
+    none warns and runs as it is), the flags restored on exit. cuBLAS reads
+    ``CUBLAS_WORKSPACE_CONFIG``, which ``main`` sets before CUDA starts."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved[0], saved[1]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+BUFFER_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def resume_leg(run, exp_of):
+    """Two epochs in one run against one epoch and ``--resume`` for the
+    second, on the card. Compared: the final parameters (the arch tensors
+    too in a search), the BatchNorm statistics, and the second epoch's
+    ``metrics.jsonl`` rows (loss, F1); the resumed run must have run the
+    second epoch only. All are held to ``RESUME_TOL``. Ops that ran
+    without a deterministic CUDA kernel (PyTorch warns) are named: where
+    they add in another order, the two runs part by rounding, which Adam
+    turns into steps of a learning rate on weights with near-zero
+    gradients, and the check fails."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run(["--epochs", "2", "--save", "WHOLE"])
+        run(["--epochs", "1", "--save", "HALF"])
+        run(["--epochs", "2", "--save", "RESUMED",
+             "--resume", os.path.join(exp_of("HALF"), "checkpoint.pt")])
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught
+                     if "does not have a deterministic" in str(w.message)})
+    whole, resumed = exp_of("WHOLE"), exp_of("RESUMED")
+    ck = [torch.load(os.path.join(d, "checkpoint.pt"), map_location="cpu",
+                     weights_only=True) for d in (whole, resumed)]
+
+    def diff(a, b):
+        return float((a.double() - b.double()).abs().max())
+    params, buffers = [0.0], [0.0]
+    for k, v in ck[0]["model"].items():
+        if v.is_floating_point():
+            (buffers if k.endswith(BUFFER_SUFFIXES) else params).append(
+                diff(v, ck[1]["model"][k]))
+    if ck[0]["arch"] is not None:
+        params += [diff(v, ck[1]["arch"][k]) for k, v in ck[0]["arch"].items()]
+    rows = []
+    for d in (whole, resumed):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            rows.append([json.loads(r) for r in f])
+    resumed_epochs = {r["epoch"] for r in rows[1]}
+    first = [r for r in rows[0] if r["epoch"] == 0]
+    rows = [[r for r in rs if r["epoch"] == 1] for rs in rows]
+    if not (resumed_epochs == {1} and [r["phase"] for r in rows[0]]
+            == [r["phase"] for r in rows[1]] == [r["phase"] for r in first]):
+        raise AssertionError(f"resume: the resumed run's epochs "
+                             f"{resumed_epochs}, second-epoch rows {rows}")
+    loss = max(abs(a["loss"] - b["loss"]) for a, b in zip(*rows))
+    f1 = max(abs(a["metric"] - b["metric"]) for a, b in zip(*rows))
+    res = {"max_abs_diff_params": max(params),
+           "max_abs_diff_bn_stats": max(buffers),
+           "max_abs_diff_loss": loss, "max_abs_diff_f1": f1,
+           "tolerance": RESUME_TOL,
+           "loss_change_epoch0_to_1": max(
+               abs(a["loss"] - b["loss"]) for a, b in zip(first, rows[0])),
+           "ops_without_deterministic_cuda_kernel": nondet,
+           "rng_states_equal": bool(
+               torch.equal(ck[0]["rng_cpu"], ck[1]["rng_cpu"])
+               and all(torch.equal(a, b) for a, b in
+                       zip(ck[0]["rng_cuda"] or [], ck[1]["rng_cuda"] or []))),
+           "second_epoch_rows": rows}
+    if max(res["max_abs_diff_params"], res["max_abs_diff_bn_stats"], loss,
+           f1) > RESUME_TOL:
+        raise AssertionError(f"resume differs from the uninterrupted run: "
+                             f"{res}")
+    return res
+
+
+def resume_phase(root, s_exp):
+    """``--resume`` on the card: the search (``main_search``) and found
+    retraining (``main_found`` on the phase 6 search's genotype), each two
+    epochs straight against one epoch and ``--resume``, the same seed, at
+    the full width on 160x256 images, under ``deterministic_algorithms``."""
+    from bmnas_tpu_torch.cli.mmimdb import main_found, main_search
+    from bmnas_tpu_torch.data.synthetic import make_mmimdb_synthetic
+    data = os.path.join(root, "resume_data")
+    make_mmimdb_synthetic(data, image_hw=(160, 256), seed=8,
+                          correlated=True, counts=RESUME_COUNTS)
+    common = ["--datadir", data, "--batchsize", str(BATCH),
+              "--num_workers", "4"]
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(root)  # main_search writes final_exp/ under the working dir
+    try:
+        with deterministic_algorithms():
+            out["search"] = resume_leg(
+                lambda flags: main_search(common + flags),
+                lambda save: glob.glob(os.path.join(
+                    root, "final_exp", "mmimdb", f"search-{save}-*"))[0])
+            out["found"] = resume_leg(
+                lambda flags: main_found(
+                    common + ["--search_exp_dir", s_exp] + flags),
+                lambda save: glob.glob(os.path.join(
+                    s_exp, f"eval-{save}-*"))[0])
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: attention vs plain
 # ---------------------------------------------------------------------------
 
 # (B, Lq, Lk, C, input scale): the JAX kernel test's five shapes, the
@@ -1185,6 +1396,9 @@ def main(argv=None):
     ap.add_argument("--out", default=None,
                     help="also write the full measurements as JSON here")
     args = ap.parse_args(argv)
+    # phase 8 runs cuBLAS deterministically; cuBLAS reads this when CUDA
+    # starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs on the GPU only",
               file=sys.stderr)
@@ -1218,10 +1432,11 @@ def main(argv=None):
     rows = kernel_phase(device)
     report["found_cell"] = rows
 
-    log("[4 node_mixed vs plain] L=16 C=192, B in (8, 37, 96), "
+    log(f"[4 node_mixed vs plain] L=16 C=192, B in {MIXED_BATCHES}, "
         f"{len(MIXED_GAMMAS)} gamma kinds, x != y and x is y")
-    mixed_rows = mixed_phase(device)
+    mixed_rows, pairs = mixed_phase(device)
     report["node_mixed"] = mixed_rows
+    report["node_mixed_pairs"] = pairs
 
     log("[5 serve] MM-IMDB found net, C=192 L=16, 160x256 images, "
         f"{SERVE_SAMPLES} samples in batches of {BATCH}")
@@ -1308,10 +1523,25 @@ def main(argv=None):
         for k, v in found["steps"].items():
             log(f"  found {k} (B=8, 160x256): {step_line(v)}")
         report["found"] = found
+
+        log("[8 resume] search and found retraining, C=192 L=16, 160x256 "
+            f"images, {RESUME_COUNTS} samples in batches of {BATCH}: 2 "
+            "epochs against 1 epoch + --resume, deterministic algorithms")
+        report["resume"] = resume_phase(tmp, s_exp)
+        for k, v in report["resume"].items():
+            log(f"  resume {k}: max diff parameters "
+                f"{v['max_abs_diff_params']:.3g}, BatchNorm statistics "
+                f"{v['max_abs_diff_bn_stats']:.3g}, loss "
+                f"{v['max_abs_diff_loss']:.3g}, F1 {v['max_abs_diff_f1']:.3g}"
+                f" (tolerance {v['tolerance']}; the loss moved "
+                f"{v['loss_change_epoch0_to_1']:.3g} from epoch 0 to 1), "
+                f"rng states equal {v['rng_states_equal']}, ops without a "
+                f"deterministic CUDA kernel "
+                f"{v['ops_without_deterministic_cuda_kernel']}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    log("[8 attention vs plain] fp32 and bf16 inputs, "
+    log("[9 attention vs plain] fp32 and bf16 inputs, "
         f"{len(ATTN_CASES)} shapes; times at B=8 C=192 L in {ATTN_TIMED}")
     reset_launches()
     attn_rows = attention_phase(device)
@@ -1374,6 +1604,8 @@ def main(argv=None):
         "bound_ms": mixed["bound_ms"],
         "bound_by": mixed["bound_by"],
         "library_ms": None,
+        "tc_bound_ms": mixed["tc_bound_ms"],
+        "geometry": mixed["geometry"],
         "call_ms": mixed["call_ms"],
         "plain_call_ms": mixed["plain_call_ms"],
     }, {
@@ -1383,7 +1615,7 @@ def main(argv=None):
         "replaces": "bmnas_tpu/ops/kernels/attention.py:74",
         "launches": main_path_launches["attention"]["attention"],
         "note": "on no path of the JAX package (only its tests call the TPU "
-                "kernel): launches are phase 8's checked calls; times at "
+                "kernel): launches are phase 9's checked calls; times at "
                 "B=8, L=512, C=192, fp32",
         "max_abs_err": err(attn_rows, "float32"),
         "max_abs_err_bf16": err(attn_rows, "bfloat16"),
@@ -1403,7 +1635,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    log(f"[9 result] {report['seconds']:.1f} s"
+    log(f"[10 result] {report['seconds']:.1f} s"
         + (f"; full report in {args.out}" if args.out else ""))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -2,12 +2,17 @@
 
 There is no CUDA compiler or card on the test host, so
 ``bmnas_tpu_torch/csrc/found_cell.cu``, ``node_mixed.cu`` and
-``attention.cu``, with their shared ``cell_common.cuh``, are compiled as
-C++ against stand-in CUDA
+``attention.cu``, with their headers ``cell_common.cuh`` and
+``tc_gemm.cuh``, are compiled as C++ against stand-in CUDA
 headers: one ``std::thread`` per CUDA thread, a ``std::barrier`` for
-``__syncthreads``, per-warp barriers for the shuffles, ``cp.async`` as a
-plain 16-byte copy, blocks one after another, shared memory allocated at
-exactly the launch's size and filled with NaNs. What it checks is the
+``__syncthreads``, per-warp barriers for the shuffles and for a
+warp-collective WMMA (each lane holds a slice of every fragment; a TF32
+operand's low 13 bits are cut, as the tensor cores read it, and
+``__float_to_tf32`` rounds to 10 mantissa bits, so the low half of 3xTF32
+counts; a misaligned WMMA pointer fails the launch), ``cp.async`` as a
+16-byte copy that lands only when a ``wait_group`` retires its group,
+blocks one after another, shared memory allocated at exactly the launch's
+size and filled with NaNs. What it checks is the
 kernels' indexing, tiling, staging and synchronisation order, through the
 port's own ctypes bindings (``node_mixed.bind`` / ``launch``,
 ``bind_mixed`` / ``launch_mixed`` and ``attention.bind`` / ``launch``),
@@ -32,6 +37,7 @@ from bmnas_tpu_torch.ops.kernels import node_mixed as tnm
 
 CUDA_RUNTIME_H = r"""
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -57,7 +63,29 @@ extern std::barrier<>* g_block_barrier;
 extern std::vector<std::unique_ptr<std::barrier<>>> g_warp_barriers;
 extern float g_shfl[1024];
 extern float* g_smem;
+// set by a stand-in that sees a misuse (a misaligned WMMA pointer); the next
+// cudaGetLastError reports it
+extern std::atomic<bool> g_emu_fault;
+// cp.async: a copy lands only when a wait_group retires its group
+struct EmuCopy { void* dst; const void* src; };
+extern thread_local std::vector<EmuCopy> g_cp_open;
+extern thread_local std::vector<std::vector<EmuCopy>> g_cp_groups;
+inline void emu_cp_async(void* s, const void* g) { g_cp_open.push_back({s, g}); }
+inline void emu_cp_commit() {
+  g_cp_groups.push_back(g_cp_open);
+  g_cp_open.clear();
+}
+inline void emu_cp_wait(int n) {  // all but the newest n groups land
+  while (static_cast<int>(g_cp_groups.size()) > n) {
+    for (const EmuCopy& c : g_cp_groups.front()) std::memcpy(c.dst, c.src, 16);
+    g_cp_groups.erase(g_cp_groups.begin());
+  }
+}
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
+// a named barrier: made for its thread count at its first use in a block;
+// an arrival that does not wait counts toward it as well
+void emu_group_sync(int id, int n);
+void emu_group_arrive(int id, int n);
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   const int t = threadIdx.x, w = t >> 5;
   g_shfl[t] = v;
@@ -74,13 +102,29 @@ inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 132;  // an H100 SXM's SMs
+  return cudaSuccess;
+}
 typedef struct CUstream_st* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class T>
 cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// an H100's limits: 228 KiB of shared memory an SM, 1 KiB of it reserved
+// for each block, 64 Ki registers, taken as 128 a thread
+template <class T>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int threads,
+                                                          size_t smem) {
+  *n = std::min<int>(65536 / (128 * threads), 233472 / (smem + 1024));
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() {
+  return g_emu_fault.exchange(false) ? cudaErrorInvalidValue : cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error" : "invalid argument";
 }
@@ -116,25 +160,168 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 }
 """
 
+MMA_H = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+#include "cuda_runtime.h"
+#include "cuda_bf16.h"
+namespace nvcuda {
+namespace wmma {
+struct matrix_a {};
+struct matrix_b {};
+struct accumulator {};
+struct row_major {};
+namespace precision { struct tf32 {}; }
+enum layout_t { mem_row_major, mem_col_major };
+
+template <class Use, int M, int N, int K> struct dims;
+template <int M, int N, int K> struct dims<matrix_a, M, N, K> {
+  static constexpr int rows = M, cols = K;
+};
+template <int M, int N, int K> struct dims<matrix_b, M, N, K> {
+  static constexpr int rows = K, cols = N;
+};
+template <int M, int N, int K> struct dims<accumulator, M, N, K> {
+  static constexpr int rows = M, cols = N;
+};
+template <class T> struct storage { using type = T; };
+template <> struct storage<precision::tf32> { using type = float; };
+
+// Lane l holds elements [l * num_elements, (l + 1) * num_elements) of the
+// tile in row-major order: a layout of the stand-in's own, which code that
+// is right for every layout does not notice.
+template <class Use, int M, int N, int K, class T, class Layout = void>
+struct fragment {
+  static constexpr int rows = dims<Use, M, N, K>::rows;
+  static constexpr int cols = dims<Use, M, N, K>::cols;
+  static constexpr int num_elements = rows * cols / 32;
+  using element_type = typename storage<T>::type;
+  element_type x[num_elements];
+};
+
+inline float emu_bits(float v, uint32_t mask) {
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  u &= mask;
+  std::memcpy(&v, &u, 4);
+  return v;
+}
+// cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero
+inline float __float_to_tf32(float v) {
+  uint32_t u;
+  std::memcpy(&u, &v, 4);
+  if ((u & 0x7f800000u) != 0x7f800000u) u += 0x1000u;
+  std::memcpy(&v, &u, 4);
+  return emu_bits(v, 0xffffe000u);
+}
+// what the tensor cores read of an operand: a tf32 one's low 13 bits are
+// ignored, so an operand not rounded by __float_to_tf32 is cut
+template <class T> float operand(typename storage<T>::type v);
+template <> inline float operand<precision::tf32>(float v) {
+  return emu_bits(v, 0xffffe000u);
+}
+template <> inline float operand<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+inline void emu_check(const void* p, unsigned ldm, size_t elem) {
+  if (reinterpret_cast<uintptr_t>(p) % 32 || ldm * elem % 16)
+    g_emu_fault = true;  // WMMA's alignment rules
+}
+
+template <class Use, int M, int N, int K, class T, class Lay, class E>
+void load_matrix_sync(fragment<Use, M, N, K, T, Lay>& f, const E* p,
+                      unsigned ldm) {
+  using F = fragment<Use, M, N, K, T, Lay>;
+  emu_check(p, ldm, sizeof(E));
+  const int lane = threadIdx.x & 31;
+  for (int i = 0; i < F::num_elements; ++i) {
+    const int e = lane * F::num_elements + i;
+    f.x[i] = p[(e / F::cols) * ldm + e % F::cols];
+  }
+}
+
+template <int M, int N, int K>
+void store_matrix_sync(float* p, const fragment<accumulator, M, N, K, float>& f,
+                       unsigned ldm, layout_t layout) {
+  using F = fragment<accumulator, M, N, K, float>;
+  emu_check(p, ldm, sizeof(float));
+  if (layout != mem_row_major) g_emu_fault = true;
+  const int lane = threadIdx.x & 31;
+  for (int i = 0; i < F::num_elements; ++i) {
+    const int e = lane * F::num_elements + i;
+    p[(e / N) * ldm + e % N] = f.x[i];
+  }
+}
+
+template <class Use, int M, int N, int K, class T, class Lay>
+void fill_fragment(fragment<Use, M, N, K, T, Lay>& f, float v) {
+  for (auto& e : f.x) e = v;
+}
+
+inline float g_mma[32][3 * 256];  // a warp's operands, gathered
+// d = a b + c, warp-collective: every lane publishes its elements, the warp
+// meets at its barrier, each lane computes its own elements of d.
+template <int M, int N, int K, class Ta, class La, class Tb, class Lb>
+void mma_sync(fragment<accumulator, M, N, K, float>& d,
+              const fragment<matrix_a, M, N, K, Ta, La>& a,
+              const fragment<matrix_b, M, N, K, Tb, Lb>& b,
+              const fragment<accumulator, M, N, K, float>& c) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float *sa = g_mma[w], *sb = sa + 256, *sc = sb + 256;
+  constexpr int na = M * K / 32, nb = K * N / 32, nc = M * N / 32;
+  for (int i = 0; i < na; ++i) sa[lane * na + i] = operand<Ta>(a.x[i]);
+  for (int i = 0; i < nb; ++i) sb[lane * nb + i] = operand<Tb>(b.x[i]);
+  for (int i = 0; i < nc; ++i) sc[lane * nc + i] = c.x[i];
+  g_warp_barriers[w]->arrive_and_wait();
+  float r[nc];
+  for (int i = 0; i < nc; ++i) {
+    const int e = lane * nc + i, row = e / N, col = e % N;
+    float s = sc[e];
+    for (int k = 0; k < K; ++k) s = fmaf(sa[row * K + k], sb[k * N + col], s);
+    r[i] = s;
+  }
+  g_warp_barriers[w]->arrive_and_wait();
+  for (int i = 0; i < nc; ++i) d.x[i] = r[i];
+}
+}  // namespace wmma
+}  // namespace nvcuda
+"""
+
 EMU_RUNTIME_CPP = r"""
 #include "cuda_runtime.h"
 #include <cstdlib>
+#include <mutex>
 thread_local uint3_ threadIdx, blockIdx;
 uint3_ blockDim;
 std::barrier<>* g_block_barrier;
 std::vector<std::unique_ptr<std::barrier<>>> g_warp_barriers;
 float g_shfl[1024];
 float* g_smem;
+std::atomic<bool> g_emu_fault{false};
+static std::mutex g_group_mutex;
+static std::unique_ptr<std::barrier<>> g_group_barriers[16];
+static std::barrier<>* emu_group_barrier(int id, int n) {
+  std::lock_guard<std::mutex> lock(g_group_mutex);
+  if (!g_group_barriers[id]) g_group_barriers[id].reset(new std::barrier<>(n));
+  return g_group_barriers[id].get();
+}
+void emu_group_sync(int id, int n) { emu_group_barrier(id, n)->arrive_and_wait(); }
+void emu_group_arrive(int id, int n) { (void)emu_group_barrier(id, n)->arrive(); }
+thread_local std::vector<EmuCopy> g_cp_open;
+thread_local std::vector<std::vector<EmuCopy>> g_cp_groups;
 void emu_launch(int blocks, int threads, size_t bytes,
                 std::function<void()> body) {
   blockDim = {unsigned(threads), 1, 1};
   for (int b = 0; b < blocks; ++b) {
     g_smem = static_cast<float*>(
-        std::aligned_alloc(16, (bytes + 15) / 16 * 16));
+        std::aligned_alloc(128, (bytes + 127) / 128 * 128));
     std::memset(g_smem, 0xff, bytes);  // NaNs: unset reads show
     std::barrier<> bar(threads);
     g_block_barrier = &bar;
     g_warp_barriers.clear();
+    for (auto& gb : g_group_barriers) gb.reset();
     for (int w = 0; w < threads / 32; ++w)
       g_warp_barriers.emplace_back(new std::barrier<>(32));
     std::vector<std::thread> ts;
@@ -151,27 +338,42 @@ void emu_launch(int blocks, int threads, size_t bytes,
 """
 
 
-def _emulated_header(src: str) -> str:
-    """cell_common.cuh with its inline PTX replaced."""
-    stand_ins = {
+# the inline PTX of each header, by function name, and its stand-in
+HEADER_STAND_INS = {
+    "cell_common.cuh": {
         "cp_async16": "inline void cp_async16(void* s, const void* g) "
-                      "{ std::memcpy(s, g, 16); }",
-        "cp_async_commit": "inline void cp_async_commit() {}",
-        "cp_async_wait_one": "inline void cp_async_wait_one() {}",
-    }
+                      "{ emu_cp_async(s, g); }",
+        "cp_async_commit": "inline void cp_async_commit() "
+                           "{ emu_cp_commit(); }",
+        "cp_async_wait_one": "inline void cp_async_wait_one() "
+                             "{ emu_cp_wait(1); }",
+    },
+    # template <int N> stays in front of the stand-in
+    "tc_gemm.cuh": {
+        "cp_async_wait": "inline void cp_async_wait() { emu_cp_wait(N); }",
+        "group_sync": "inline void group_sync(int id, int n) "
+                      "{ emu_group_sync(id, n); }",
+        "group_arrive": "inline void group_arrive(int id, int n) "
+                        "{ emu_group_arrive(id, n); }",
+    },
+}
+
+
+def _emulated_header(src: str, stand_ins: dict) -> str:
+    """A header with its inline PTX replaced."""
     for name, body in stand_ins.items():
         src, n = re.subn(r"__device__ __forceinline__ void " + name
                          + r"\(.*?\n\}", body, src, flags=re.S)
         assert n == 1, name
     assert "asm" not in src
-    return src
+    return '#include "cuda_runtime.h"\n' + src
 
 
 def _emulated_source(src: str) -> str:
     """A kernel source with its launch syntax replaced."""
-    old = "extern __shared__ __align__(16) float smem[];"
-    assert src.count(old) == 1
-    src = src.replace(old, "float* smem = g_smem;")
+    src, n = re.subn(r"extern __shared__ __align__\(\d+\) float smem\[\];",
+                     "float* smem = g_smem;", src)
+    assert n == 1
     # kernel<T><<<grid, block, smem, stream>>>(args): the stream is dropped
     src, n = re.subn(r"(\w+_kernel<T>)<<<([^,]+,[^,]+,[^,]+),[^>]*>>>"
                      r"\((.*?)\);",
@@ -196,8 +398,10 @@ def emu_libs(tmp_path_factory):
     d = tmp_path_factory.mktemp("cell_kernels_emu")
     files = {"cuda_runtime.h": CUDA_RUNTIME_H, "cuda_bf16.h": CUDA_BF16_H,
              "emu_runtime.cpp": EMU_RUNTIME_CPP}
-    with open(os.path.join(_build.CSRC, "cell_common.cuh")) as f:
-        files["cell_common.cuh"] = _emulated_header(f.read())
+    files["mma.h"] = MMA_H
+    for name, stand_ins in HEADER_STAND_INS.items():
+        with open(os.path.join(_build.CSRC, name)) as f:
+            files[name] = _emulated_header(f.read(), stand_ins)
     for name in KERNELS:
         with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
             files[f"{name}_emu.cpp"] = _emulated_source(f.read())
@@ -363,6 +567,75 @@ def test_node_mixed_refuses_width(emu_libs):
     with pytest.raises(RuntimeError, match="launch failed"):
         tnm.launch_mixed(emu_libs["node_mixed"], x, x, torch.ones(4) / 4, p,
                          1e-5, None)
+
+
+# (B, L, C, samples a block, columns a block, x is y); 0: the launcher picks
+MIXED_GEOMETRY_CASES = {
+    "ragged-group": (5, 8, 32, 2, 0, False),   # groups of 2, the last of 1
+    "ntu-width": (4, 8, 128, 2, 0, False),     # two samples, one row tile
+    "c256": (2, 8, 256, 0, 32, False),         # the widest C, 8 K-tiles
+    "x-is-y-ragged-cols": (3, 16, 48, 2, 32, True),  # columns 48..63 empty
+    "four-samples": (6, 16, 32, 4, 16, False),  # 64 rows, 2 tiles a warp
+    "three-row-tiles": (3, 24, 16, 2, 0, False),  # a unit of one row tile
+    "odd-length": (5, 7, 24, 0, 0, False),     # L not a multiple of 4
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(MIXED_GEOMETRY_CASES))
+def test_node_mixed_geometries(emu_libs, case, dtype):
+    """Blocks of several samples with a ragged last group, the NTU/Ego
+    width, C=256, a ragged last column tile and x is y, against
+    ``node_mixed_op_reference`` at the kernel tests' tolerances."""
+    B, L, C, S, nt, same = MIXED_GEOMETRY_CASES[case]
+    gen = torch.Generator().manual_seed(B * 1000 + C)
+    p = _mixed_params(gen, L, C, dtype)
+    x = torch.randn(B, L, C, generator=gen).to(dtype)
+    y = x if same else torch.randn(B, L, C, generator=gen).to(dtype)
+    g = torch.randn(4, generator=gen).softmax(0)
+    lib = emu_libs["node_mixed"]
+    geom = tnm.mixed_geometry(lib, B, L, C, x.element_size(), S, nt)
+    assert (S or geom["samples_per_block"]) == geom["samples_per_block"]
+    assert (nt or geom["cols_per_block"]) == geom["cols_per_block"]
+    got = tnm.launch_mixed(lib, x, y, g, p, 1e-5, None, S, nt).float()
+    want = tnm.node_mixed_op_reference(x, y, g, p).float()
+    tol = TOLS[dtype]
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= tol + tol * want.abs()).all(), float(
+        (got - want).abs().max())
+
+
+@pytest.mark.parametrize("B,S,nt,blocks", [
+    (8, 1, 16, 96), (37, 2, 32, 114), (96, 2, 32, 288)])
+def test_node_mixed_launcher_fills_the_card(emu_libs, B, S, nt, blocks):
+    """At the MM-IMDB width (L=16, C=192) the launcher takes the least
+    waves over 132 SMs (one 512-thread block an SM) times each block's
+    rows x columns plus its fixed cost, in fp32 and bf16: the smallest
+    blocks at the search batch, two samples and 32 columns a block above
+    it."""
+    for itemsize in (4, 2):
+        geom = tnm.mixed_geometry(emu_libs["node_mixed"], B, 16, 192,
+                                  itemsize)
+        assert (geom["samples_per_block"], geom["cols_per_block"],
+                geom["blocks"]) == (S, nt, blocks)
+        assert geom["smem_bytes"] <= tnm.SMEM_LIMIT
+
+
+def test_node_mixed_refuses_geometry(emu_libs):
+    """Three samples a block is refused by the C function; more rows than
+    a block's accumulators hold is refused by the binding."""
+    gen = torch.Generator().manual_seed(8)
+    lib = emu_libs["node_mixed"]
+    p = _mixed_params(gen, 8, 16, torch.float32)
+    x = torch.randn(4, 8, 16, generator=gen)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tnm.launch_mixed(lib, x, x, torch.ones(4) / 4, p, 1e-5, None, 3, 0)
+    L = tnm.MIXED_MAX_L + 1
+    p = _mixed_params(gen, L, 8, torch.float32)
+    x = torch.randn(1, L, 8, generator=gen)
+    with pytest.raises(ValueError, match="does not fit one block"):
+        tnm.launch_mixed(lib, x, x, torch.ones(4) / 4, p, 1e-5, None)
 
 
 # ---------------------------------------------------------------------------

@@ -149,6 +149,38 @@ def test_reshape_input_layer_mmimdb(shape):
              tlayers.ReshapeInputLayerMMIMDB(10, 6, 4, 0.0), _x(*shape))
 
 
+def _grad_fns(t):
+    """Names of every autograd node behind ``t``."""
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None and fn not in seen:
+            seen.add(fn)
+            todo += [nxt for nxt, _ in fn.next_functions]
+    return {type(fn).__name__ for fn in seen}
+
+
+def test_reshape_input_layer_mmimdb_vectors_skip_the_pool():
+    """(B, C_in) vectors are replicated into the L bins without the
+    adaptive max pool, whose CUDA backward adds the L gradients of a 1x1
+    map by atomics in no fixed order (found retraining trains the text
+    backbone through this layer, so ``--resume`` could not match an
+    uninterrupted run): the same output and input gradient as the pool,
+    and no pool in the backward graph."""
+    torch.manual_seed(0)
+    layer = tlayers.ReshapeInputLayerMMIMDB(10, 6, 16, 0.0).train()
+    x = torch.from_numpy(_x(3, 10)).requires_grad_()
+    out = layer(x)
+    assert not any("AdaptiveMaxPool" in n for n in _grad_fns(out))
+    (gx,) = torch.autograd.grad(out.square().sum(), x)
+    xp = x.detach().clone().requires_grad_()
+    pooled = tlayers.adaptive_max_pool_2d(xp[:, None, None, :], (4, 4))
+    want = layer.project(pooled.reshape(3, 16, 10))
+    (gxp,) = torch.autograd.grad(want.square().sum(), xp)
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(gx, gxp, rtol=1e-5, atol=1e-6)
+
+
 def test_reshape_input_layer_mmimdb_needs_square_L():
     with pytest.raises(ValueError, match="perfect square"):
         tlayers.ReshapeInputLayerMMIMDB(10, 6, 8, 0.0)
