@@ -1,288 +1,538 @@
 // softmax(x y^T / sqrt(C)) y, keys equal to values, as one CUDA kernel for
-// Hopper.
+// Hopper's tensor cores.
 //
 // Replaces bmnas_tpu/ops/kernels/attention.py::blockwise_scaled_dot_attention
 // (the Pallas TPU kernel). Queries x (B, Lq, C) and keys = values y
 // (B, Lk, C) in fp32 or bf16, read in their own type and accumulated in
 // fp32; the output is fp32 (B, Lq, C). The key axis is consumed tile by tile
 // with an online softmax (running max m, running denominator l, an fp32
-// accumulator rescaled by exp(m_old - m_new)), so the (Lq, Lk) score matrix
+// accumulator rescaled by 2^(m_old - m_new)), so the (Lq, Lk) score matrix
 // is never written to device memory: only x, y and the output are.
 //
 // What bounds it on an H100: the call does 4 B Lq Lk C FLOP (two products)
 // and must move 4 (2 B Lq C + B Lk C) bytes in fp32. At B = 8, C = 192,
 // L = 16 that is 1.6 MFLOP against 295 KB: bound by bytes, 0.09 us at
 // 3.35 TB/s, where launch latency is all that shows. From L of a few
-// hundred on it is bound by operations: 24 us at L = 512 and 1.5 ms at
-// L = 4096 at the 67 TFLOP/s fp32 rate.
+// hundred on it is bound by operations: at L = 4096, 1.5 ms at the 67
+// TFLOP/s of fp32 FMA and 0.21 ms at the tensor cores' 495 TFLOP/s of TF32
+// (3xTF32 runs three TF32 products for each fp32 one).
 //
 // What the design does about it:
-//   * one block of 256 threads per (sample, 64-query tile). The grid is
-//     exactly B * ceil(Lq / 64) blocks, so a ragged Lq needs no pad copy:
-//     query rows past Lq are staged as zeros and never stored.
-//   * the query tile sits in shared memory in fp32, converted once. Key
-//     tiles of 64 rows stream through a double buffer in shared memory by
-//     cp.async in their storage type, the next tile in flight while the
-//     current one is used. Rows past Lk are never loaded and their scores
-//     are masked: p = 0 explicitly, m starting at -1e30 as in the TPU
-//     kernel, so the first tile's correction exp(-1e30 - m) is 0, never NaN.
-//   * one tile's 64 x 64 scores live in shared memory; each thread computes
-//     a 4 x 4 block of them in registers from float4 reads. Rows are padded
-//     by 16 bytes, so the rows of a float4 read fall on distinct banks.
-//   * the softmax update takes one warp per 8 query rows, max and sum by
-//     shuffles. The accumulator lives in registers: thread (ty, tx) owns
-//     rows ty + 16 i and channel quads tx + 16 k, up to C = 256. C need not
-//     be a power of two: at C = 192 (48 quads) the threads past C idle in
-//     the P K product.
+//   * both products run on the tensor cores through WMMA (tc_gemm.cuh):
+//       fp32 inputs: S = Q K^T and O = P V in 3xTF32 (fp32 accuracy);
+//       bf16 inputs: S in one bf16 MMA (exact products, fp32 sums); P stays
+//         fp32, split into TF32 hi and lo, and V (bf16, exact in TF32) is
+//         widened once a tile into an fp32 copy: two TF32 products. P is
+//         never rounded to bf16, so bf16 inputs keep fp32 tolerances.
+//     K^T is K read in place as WMMA's col_major B operand: no transpose.
+//   * a warp owns 16 query rows and a share of the key and channel tiles.
+//     A block is wq query groups of 16 rows times wc warps a group (at most
+//     8 warps); a group's wc warps split S's 16-key tiles, the softmax's
+//     rows and P V's 16-channel tiles among them. The launcher picks
+//     (wq, wc, bk) for the call so that the grid covers the card (the
+//     occupancy calculator says how many blocks an SM holds);
+//     attention_geometry() says what it picked.
+//   * key tiles of bk (32 or 64) rows stream through a double buffer in
+//     shared memory by cp.async in their storage type, the next tile in
+//     flight while the current one is used; the query tile is staged once.
+//     C is padded to cp, a multiple of 16, with zero columns in shared
+//     memory; rows past Lq and Lk are zero and never stored; masked scores
+//     are -1e30 and their p is 0, so the first correction is 0, never NaN.
+//   * the online softmax with an opaque accumulator layout: O stays in
+//     WMMA fragments across the whole key loop. The running max moves only
+//     when a row's tile max exceeds it by more than kRescaleSlack (2^8 in
+//     p), so p <= 256 and fp32 keeps every sum; when it moves, the warp
+//     stores each O fragment to a 16x16 staging tile of its own, scales the
+//     rows there and loads it back (correct for any fragment layout). Inputs
+//     of ordinary scale move the max in the first tile only.
+//   * three barriers a tile: the block when a tile has landed and when the
+//     scores are in shared memory (bf16: and V's fp32 copy), the group when
+//     P is. The softmax takes 2 wc lanes a row, max and sum by shuffles.
 //   * block_q / block_k of the TPU kernel sized VMEM tiles of a sequential
-//     grid; a Hopper block picks its own (64 x 64) and the wrapper keeps the
-//     two arguments for the signature only.
-//   * plain fp32 FMA on the CUDA cores, one block per SM (166 KB of shared
-//     memory at C = 192 in fp32): far from the 67 TFLOP/s bound at long L.
-//     mma.sync / wgmma in TF32 or bf16 (FlashAttention-2/3) is later work.
+//     grid; the wrapper keeps them for the signature only.
+//
+// Shared memory (bytes, fp32 / bf16 inputs): Q 16 wq (cp + pad) s, two key
+// tiles 2 bk (cp + pad) s (pad: 16 bytes a row, s the storage size), bf16
+// only an fp32 copy of V bk (cp + 4) 4, the scores / P 16 wq (bk + 4) 4,
+// one 16x20 fp32 staging tile a warp and m, l and the corrections. At
+// wq = 4, wc = 2, bk = 64 (the largest): C = 192 178,944 / 155,392, C =
+// 256 228,096 / 196,352, within the 232,448 a block may take.
 //
 // Requirements: C % 8 == 0, 8 <= C <= 256, B, Lq, Lk >= 1, checked here;
 // 16-byte aligned x, y and out, checked by the wrapper.
 #include "cell_common.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows of one block
-constexpr int kBK = 64;        // key rows of one tile
-constexpr int kThreads = 256;  // 16 x 16: (ty, tx)
+constexpr int kMaxWarps = 8;      // warps a block
+constexpr int kMaxGroups = 4;     // query groups of 16 rows a block (wq)
+constexpr int kMaxKeyTiles = 4;   // 16-key score tiles a warp: bk / 16 / wc
+constexpr int kMaxColTiles = 8;   // 16-channel output tiles a warp
+constexpr int kMaxLaneKeys = 32;  // scores a lane holds in the softmax
+constexpr int kStageLd = 20;      // floats a row of a warp's staging tile
+constexpr int kDefaultSms = 132;  // H100 SXM, if the device cannot say
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+// log2 units by which a row's tile max may exceed its running max before
+// the accumulator is rescaled
+constexpr float kRescaleSlack = 8.f;
+// the launcher's cost of one 16-key step of the softmax and the barriers,
+// in the channel units of its products (2 cp a key)
+constexpr long kKeyFixed = 64;
 
-// Bytes of dynamic shared memory: the fp32 query tile, the scores, m, l and
-// the corrections, then two key tiles in the storage type. Rows carry 16
-// bytes of padding.
-size_t attention_smem(int C, int itemsize) {
-  return static_cast<size_t>(kBQ) * (C + 4) * sizeof(float) +
-         static_cast<size_t>(kBQ) * kBK * sizeof(float) +
-         static_cast<size_t>(3) * kBQ * sizeof(float) +
-         static_cast<size_t>(2) * kBK * (C + 16 / itemsize) * itemsize;
+// The launch geometry of one call.
+struct AttnGeom {
+  int wq;      // query groups of 16 rows a block
+  int wc;      // warps a group
+  int bk;      // keys a tile: 32 or 64
+  int cp;      // C rounded up to 16
+  int qs, ks;  // elements a row of Q and of a key tile (storage type)
+  int vs, ps;  // floats a row of V's fp32 copy and of the scores / P
+  int nq;      // query blocks a sample: ceil(Lq / 16 wq)
+  int blocks;  // B nq
+};
+
+// Byte offsets of the regions of dynamic shared memory, 128-aligned.
+struct AttnSmem {
+  size_t q, k, v, p, stage, stats, total;
+};
+
+size_t align128(size_t n) { return (n + 127) / 128 * 128; }
+
+AttnGeom attn_geom(int B, int Lq, int C, int itemsize, int wq, int wc,
+                   int bk) {
+  AttnGeom g;
+  g.wq = wq;
+  g.wc = wc;
+  g.bk = bk;
+  g.cp = (C + 15) / 16 * 16;
+  g.qs = g.cp + 16 / itemsize;
+  g.ks = g.qs;
+  g.vs = g.cp + 4;
+  g.ps = bk + 4;
+  g.nq = (Lq + 16 * wq - 1) / (16 * wq);
+  const long blocks = static_cast<long>(B) * g.nq;
+  g.blocks = blocks > 2147483647L ? -1 : static_cast<int>(blocks);
+  return g;
 }
 
-// Rows [k0, k0 + kn) of one sample's y into dst (row stride ks elements)
-// with cp.async, 16 bytes a copy; a row is whole 16-byte chunks.
+AttnSmem attn_smem(const AttnGeom& g, int itemsize) {
+  AttnSmem s;
+  s.q = 0;
+  s.k = s.q + align128(static_cast<size_t>(16) * g.wq * g.qs * itemsize);
+  s.v = s.k + align128(static_cast<size_t>(2) * g.bk * g.ks * itemsize);
+  s.p = s.v + (itemsize == 4 ? 0
+                             : align128(static_cast<size_t>(g.bk) * g.vs * 4));
+  s.stage = s.p + align128(static_cast<size_t>(16) * g.wq * g.ps * 4);
+  s.stats = s.stage + align128(static_cast<size_t>(g.wq) * g.wc * 16 *
+                               kStageLd * 4);
+  s.total = s.stats + static_cast<size_t>(3) * 16 * g.wq * 4;
+  return s;
+}
+
+__device__ __forceinline__ void zero16(void* p) {
+  *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// rows [0, n) of src (row stride C) into dst (row stride ld) by cp.async,
+// 16 bytes a copy; the pad columns [C, cp) and the rows [n, rows) are
+// zeroed by plain stores (never a cp.async target, so no race).
 template <typename T>
-__device__ void load_k_tile(T* dst, const T* yb, int k0, int kn, int C,
-                            int ks) {
+__device__ void stage_rows(T* dst, const T* src, int n, int rows, int C,
+                           int cp, int ld) {
   constexpr int kVec = 16 / sizeof(T);
-  const int chunks = C / kVec;
-  for (int i = threadIdx.x; i < kn * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i - r * chunks) * kVec;
-    cp_async16(dst + r * ks + c, yb + static_cast<size_t>(k0 + r) * C + c);
+  const int row_chunks = cp / kVec;
+  for (int i = threadIdx.x; i < rows * row_chunks; i += blockDim.x) {
+    const int r = i / row_chunks, c = (i - r * row_chunks) * kVec;
+    if (r < n && c < C)
+      cp_async16(dst + r * ld + c, src + static_cast<size_t>(r) * C + c);
+    else
+      zero16(dst + r * ld + c);
   }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, s))));
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kMaxWarps)
     attention_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                     float* __restrict__ out, int Lq, int Lk, int C, int nq,
-                     float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int qs = C + 4;                                   // floats a row
-  const int ks = C + 16 / static_cast<int>(sizeof(T));    // elements a row
-  float* Qs = smem;
-  float* S = Qs + kBQ * qs;
-  float* m_s = S + kBQ * kBK;
-  float* l_s = m_s + kBQ;
-  float* c_s = l_s + kBQ;
-  T* kbuf = reinterpret_cast<T*>(c_s + kBQ);
+                     float* __restrict__ out, int Lq, int Lk, int C,
+                     AttnGeom g, AttnSmem lay, float scale_log2) {
+  extern __shared__ __align__(128) float smem[];
+  using Step = TcStep<T>;
+  using F32 = TcStep<float>;
+  char* base = reinterpret_cast<char*>(smem);
+  T* Qs = reinterpret_cast<T*>(base + lay.q);
+  T* Kbuf = reinterpret_cast<T*>(base + lay.k);
+  float* V32 = reinterpret_cast<float*>(base + lay.v);
+  float* Ps = reinterpret_cast<float*>(base + lay.p);
+  float* m_s = reinterpret_cast<float*>(base + lay.stats);
+  float* l_s = m_s + 16 * g.wq;
+  float* c_s = l_s + 16 * g.wq;
 
-  const int b = blockIdx.x / nq;
-  const int q0 = (blockIdx.x - b * nq) * kBQ;
-  const int rows = min(kBQ, Lq - q0);
-  const T* xb = x + (static_cast<size_t>(b) * Lq + q0) * C;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = warp / g.wc, wi = warp - grp * g.wc;
+  const int b = blockIdx.x / g.nq;
+  const int q0 = (blockIdx.x - b * g.nq) * 16 * g.wq;
+  const int rows = min(16 * g.wq, Lq - q0);
   const T* yb = y + static_cast<size_t>(b) * Lk * C;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int ntiles = (Lk + kBK - 1) / kBK;
+  const int ntiles = (Lk + g.bk - 1) / g.bk;
+  const T* Qg = Qs + grp * 16 * g.qs;      // this warp's query rows
+  float* Pg = Ps + grp * 16 * g.ps;        // ... their scores, then P
+  float* stage = reinterpret_cast<float*>(base + lay.stage) +
+                 warp * 16 * kStageLd;     // this warp's staging tile
+  const int row0 = grp * 16;               // first of its rows in m, l, c
 
-  // key tile 0 in flight while the query tile is staged
-  load_k_tile(kbuf, yb, 0, min(kBK, Lk), C, ks);
+  // the query tile and key tile 0 in one cp.async group
+  stage_rows(Qs, x + (static_cast<size_t>(b) * Lq + q0) * C, rows,
+             16 * g.wq, C, g.cp, g.qs);
+  stage_rows(Kbuf, yb, min(g.bk, Lk), g.bk, C, g.cp, g.ks);
   cp_async_commit();
-  const int c4 = C / 4;
-  for (int i = tid; i < kBQ * c4; i += kThreads) {
-    const int r = i / c4, c = 4 * (i - r * c4);
-    store4(Qs + r * qs + c,
-           r < rows ? load4(xb + static_cast<size_t>(r) * C + c)
-                    : make_float4(0.f, 0.f, 0.f, 0.f));
-  }
-  if (tid < kBQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
+  if (threadIdx.x < 16 * g.wq) {
+    m_s[threadIdx.x] = kNegInf;
+    l_s[threadIdx.x] = 0.f;
   }
 
-  float4 acc[4][4];
+  // O: output tiles n = wi + wc u of the group's 16 rows
+  const int ncol = g.cp / 16, nkey = g.bk / 16;
+  typename F32::Acc o[kMaxColTiles];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int u = 0; u < kMaxColTiles; ++u) wmma::fill_fragment(o[u], 0.f);
+
+  // softmax: the warp's rows [r0, r0 + 16 / wc), lpr lanes a row
+  const int lpr = 2 * g.wc, npl = g.bk / lpr;
+  const int srow = wi * (16 / g.wc) + lane / lpr, sub = lane % lpr;
 
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kBK, kn = min(kBK, Lk - k0);
+    const int k0 = t * g.bk, kn = min(g.bk, Lk - k0);
+    cp_async_wait<0>();  // tile t has landed (this thread's copies)
+    __syncthreads();     // ... and everyone's; tile t - 1 is consumed
     if (t + 1 < ntiles)
-      load_k_tile(kbuf + ((t + 1) & 1) * kBK * ks, yb, k0 + kBK,
-                  min(kBK, Lk - k0 - kBK), C, ks);
-    cp_async_commit();    // possibly empty: keeps one group per tile
-    cp_async_wait_one();  // tile t has landed (this thread's copies)
-    __syncthreads();      // ... and every other thread's; Q, m, l are set
-    const T* K = kbuf + (t & 1) * kBK * ks;
+      stage_rows(Kbuf + ((t + 1) & 1) * g.bk * g.ks,
+                 yb + static_cast<size_t>(k0 + g.bk) * C,
+                 min(g.bk, Lk - k0 - g.bk), g.bk, C, g.cp, g.ks);
+    cp_async_commit();
+    const T* K = Kbuf + (t & 1) * g.bk * g.ks;
 
-    // scores: thread (ty, tx) takes query rows ty + 16 i, keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < C; c += 4) {
-      float4 q[4], k[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) q[i] = load4(Qs + (ty + 16 * i) * qs + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) k[j] = load4(K + (tx + 16 * j) * ks + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dot4(q[i], k[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = tx + 16 * j;  // keys past Lk read stale rows
-        S[(ty + 16 * i) * kBK + key] = key < kn ? s[i][j] * scale : kNegInf;
-      }
-    __syncthreads();
-
-    // online softmax: warp w updates query rows 8 w .. 8 w + 7
-    for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-      float* row = S + r * kBK;
-      const float a = row[lane], bb = row[lane + 32];
-      float mx = fmaxf(a, bb);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float pa = lane < kn ? expf(a - m_new) : 0.f;
-      const float pb = lane + 32 < kn ? expf(bb - m_new) : 0.f;
-      row[lane] = pa;
-      row[lane + 32] = pb;
-      float sum = pa + pb;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {  // every lane has read m_old: the shuffles wait
-        const float corr = expf(m_old - m_new);
-        c_s[r] = corr;
-        l_s[r] = fmaf(l_s[r], corr, sum);
-        m_s[r] = m_new;
+    if (sizeof(T) != 4) {  // V widened to fp32, exact in TF32
+      const int c4 = g.cp / 4;
+      for (int i = threadIdx.x; i < g.bk * c4; i += blockDim.x) {
+        const int r = i / c4, c = 4 * (i - r * c4);
+        store4(V32 + r * g.vs + c, load4(K + r * g.ks + c));
       }
     }
-    __syncthreads();
 
-    // acc = acc * corr + P K over the tile's valid keys
+    // S = Q K^T for this warp's key tiles j = wi + wc u below kn
+    {
+      typename Step::Acc s[kMaxKeyTiles];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[ty + 16 * i];
+      for (int u = 0; u < kMaxKeyTiles; ++u) wmma::fill_fragment(s[u], 0.f);
+      for (int c = 0; c < g.cp; c += Step::kK) {
+        typename Step::A a;
+        Step::load_a(a, Qg + c, g.qs);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        acc[i][k].x *= corr;
-        acc[i][k].y *= corr;
-        acc[i][k].z *= corr;
-        acc[i][k].w *= corr;
+        for (int u = 0; u < kMaxKeyTiles; ++u) {
+          const int j = wi + g.wc * u;
+          if (j < nkey && 16 * j < kn) {
+            typename Step::BT bt;
+            Step::load_b(bt, K + 16 * j * g.ks + c, g.ks);
+            Step::mma(s[u], a, bt);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kMaxKeyTiles; ++u) {
+        const int j = wi + g.wc * u;
+        if (j < nkey && 16 * j < kn)
+          wmma::store_matrix_sync(Pg + 16 * j, s[u], g.ps,
+                                  wmma::mem_row_major);
       }
     }
-    for (int j = 0; j < kn; ++j) {
-      float p[4];
+    __syncthreads();  // the group's scores (and V's fp32 copy) are set
+
+    // online softmax of row srow over the tile's keys sub + lpr e
+    {
+      float sv[kMaxLaneKeys];
+      float* prow = Pg + srow * g.ps;
+      float mx = kNegInf;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = S[(ty + 16 * i) * kBK + j];
+      for (int e = 0; e < kMaxLaneKeys; ++e) {
+        if (e < npl) {
+          const int key = sub + lpr * e;
+          sv[e] = key < kn ? prow[key] * scale_log2 : kNegInf;
+          mx = fmaxf(mx, sv[e]);
+        }
+      }
+      for (int o2 = 1; o2 < lpr; o2 <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+      const float m_old = m_s[row0 + srow];
+      const float m_new = mx > m_old + kRescaleSlack ? mx : m_old;
+      float sum = 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int c = 4 * (tx + 16 * k);
-        if (c < C) {
-          const float4 v = load4(K + j * ks + c);
+      for (int e = 0; e < kMaxLaneKeys; ++e) {
+        if (e < npl) {
+          const int key = sub + lpr * e;
+          const float p = key < kn ? exp2f(sv[e] - m_new) : 0.f;
+          prow[key] = p;
+          sum += p;
+        }
+      }
+      for (int o2 = 1; o2 < lpr; o2 <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o2);
+      if (sub == 0) {  // every lane of the row has read m_old
+        const float corr = exp2f(m_old - m_new);
+        c_s[row0 + srow] = corr;
+        l_s[row0 + srow] = fmaf(l_s[row0 + srow], corr, sum);
+        m_s[row0 + srow] = m_new;
+      }
+    }
+    group_sync(1 + grp, 32 * g.wc);  // the group's P and corrections
+
+    // O = O corr + P V. A moved max rescales O through the staging tile.
+    float moved = c_s[row0 + (lane & 15)] != 1.f ? 1.f : 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][k].x = fmaf(p[i], v.x, acc[i][k].x);
-            acc[i][k].y = fmaf(p[i], v.y, acc[i][k].y);
-            acc[i][k].z = fmaf(p[i], v.z, acc[i][k].z);
-            acc[i][k].w = fmaf(p[i], v.w, acc[i][k].w);
+    for (int o2 = 1; o2 < 16; o2 <<= 1)
+      moved = fmaxf(moved, __shfl_xor_sync(0xffffffffu, moved, o2));
+    if (t > 0 && moved > 0.f) {  // at t = 0, O is zero
+      const int r = lane >> 1, c = 8 * (lane & 1);
+      const float corr = c_s[row0 + r];
+#pragma unroll
+      for (int u = 0; u < kMaxColTiles; ++u) {
+        if (wi + g.wc * u < ncol) {
+          wmma::store_matrix_sync(stage, o[u], kStageLd,
+                                  wmma::mem_row_major);
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 8; ++i) stage[r * kStageLd + c + i] *= corr;
+          __syncwarp();
+          wmma::load_matrix_sync(o[u], stage, kStageLd, wmma::mem_row_major);
+          __syncwarp();
+        }
+      }
+    }
+    for (int kk = 0; kk < kn; kk += F32::kK) {
+      typename F32::A pa;
+      F32::load_a(pa, Pg + kk, g.ps);
+#pragma unroll
+      for (int u = 0; u < kMaxColTiles; ++u) {
+        const int n = wi + g.wc * u;
+        if (n < ncol) {
+          typename F32::B bv;
+          if (sizeof(T) == 4) {
+            F32::load_b(bv, reinterpret_cast<const float*>(K) +
+                                kk * g.ks + 16 * n, g.ks);
+            F32::mma(o[u], pa, bv);
+          } else {
+            F32::load_b_exact(bv, V32 + kk * g.vs + 16 * n, g.vs);
+            F32::mma_exact_b(o[u], pa, bv);
           }
         }
       }
     }
-    __syncthreads();  // tile t's buffer is refilled at t + 2; S rewritten
   }
 
+  // out = O / l for the rows below Lq and the channels below C
+  const int r = lane >> 1, c = 8 * (lane & 1);
+  const int q = grp * 16 + r;
+  const float inv = q < rows ? 1.f / l_s[row0 + r] : 0.f;
+  float* orow = out + (static_cast<size_t>(b) * Lq + q0 + q) * C;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r < rows) {
-      const float inv = 1.f / l_s[r];
-      float* o = out + (static_cast<size_t>(b) * Lq + q0 + r) * C;
+  for (int u = 0; u < kMaxColTiles; ++u) {
+    const int n = wi + g.wc * u;
+    if (n < ncol) {
+      wmma::store_matrix_sync(stage, o[u], kStageLd, wmma::mem_row_major);
+      __syncwarp();
+      if (q < rows) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int c = 4 * (tx + 16 * k);
-        if (c < C)
-          store4(o + c, make_float4(acc[i][k].x * inv, acc[i][k].y * inv,
-                                    acc[i][k].z * inv, acc[i][k].w * inv));
+        for (int i = 0; i < 8; i += 4) {
+          const int col = 16 * n + c + i;
+          if (col < C) {
+            const float* v = stage + r * kStageLd + c + i;
+            store4(orow + col,
+                   make_float4(v[0] * inv, v[1] * inv, v[2] * inv,
+                               v[3] * inv));
+          }
+        }
       }
+      __syncwarp();
     }
   }
 }
 
+// The kernel may take every byte of shared memory a block can have; the
+// occupancy calculator then sees each geometry's real share.
+template <typename T>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(attention_kernel<T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemLimit);
+}
+
+template <typename T>
+int blocks_per_sm(int threads, size_t smem) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, attention_kernel<T>, threads, smem) != cudaSuccess)
+    n = 0;
+  return n;
+}
+
+int sm_count() {
+  int dev = 0, nsm = kDefaultSms;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    nsm = kDefaultSms;
+  return nsm;
+}
+
+// The geometry of a call: wq, wc and bk as asked (0: the launcher picks).
+// The launcher's cost of a geometry: the busiest SM runs ceil(blocks /
+// SMs) blocks, k at a time (k from the occupancy calculator), each of
+// whose warps does 1 / wc of its group's work; an SM runs 8 warps' worth
+// at once. So cost = rounds x keys x (2 cp + kKeyFixed) x max(8, k wq wc)
+// / wc. The first of wq = 4, 2, 1, wc = 1, 2, 4, bk = 64, 32 wins a tie.
+// False if none fits.
+template <typename T>
+bool pick_geom(int B, int Lq, int Lk, int C, int wq_req, int wc_req,
+               int bk_req, AttnGeom* out, int* occ_out) {
+  const int nsm = sm_count();
+  const int qgroups = (Lq + 15) / 16;
+  bool found = false;
+  long best = 0;
+  for (int wq = kMaxGroups; wq >= 1; wq >>= 1) {
+    if (wq_req ? wq != wq_req : wq > 1 && wq > qgroups) continue;
+    for (int wc = 1; wc <= 4; wc <<= 1) {
+      if (wc_req && wc != wc_req) continue;
+      for (int bk = 64; bk >= 32; bk >>= 1) {
+        if (bk_req && bk != bk_req) continue;
+        const AttnGeom g = attn_geom(B, Lq, C, sizeof(T), wq, wc, bk);
+        const int warps = wq * wc;
+        if (warps > kMaxWarps || bk / 16 < wc ||
+            (g.cp / 16 + wc - 1) / wc > kMaxColTiles || g.blocks < 1)
+          continue;
+        const size_t smem = attn_smem(g, sizeof(T)).total;
+        if (smem > static_cast<size_t>(kSmemLimit)) continue;
+        const int occ = blocks_per_sm<T>(32 * warps, smem);
+        if (occ < 1) continue;
+        const long per_sm = (g.blocks + nsm - 1) / nsm;
+        const long k = per_sm < occ ? per_sm : occ;
+        const long rounds = (per_sm + k - 1) / k;
+        const int ntiles = (Lk + bk - 1) / bk;
+        const int last = Lk - (ntiles - 1) * bk;
+        const long keys = static_cast<long>(ntiles - 1) * bk +
+                          (last + 15) / 16 * 16;
+        const long par = k * warps > 8 ? k * warps : 8;
+        const long cost =
+            rounds * keys * (2L * g.cp + kKeyFixed) * par / wc;
+        if (!found || cost < best) {
+          *out = g;
+          *occ_out = occ;
+          best = cost;
+          found = true;
+        }
+      }
+    }
+  }
+  return found;
+}
+
 template <typename T>
 int launch(const void* x, const void* y, float* out, int B, int Lq, int Lk,
-           int C, cudaStream_t stream) {
-  const size_t smem = attention_smem(C, sizeof(T));
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const int nq = (Lq + kBQ - 1) / kBQ;
-  if (static_cast<long long>(B) * nq > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+           int C, int wq, int wc, int bk, cudaStream_t stream) {
+  cudaError_t err = allow_smem<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = B * nq;
-  const float scale = 1.f / sqrtf(static_cast<float>(C));
-  const T* xt = static_cast<const T*>(x);
-  const T* yt = static_cast<const T*>(y);
-  attention_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      xt, yt, out, Lq, Lk, C, nq, scale);
+  AttnGeom g;
+  int occ = 0;
+  if (!pick_geom<T>(B, Lq, Lk, C, wq, wc, bk, &g, &occ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AttnSmem lay = attn_smem(g, sizeof(T));
+  const size_t smem = lay.total;
+  const int threads = 32 * g.wq * g.wc;
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(C));
+  attention_kernel<T><<<g.blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), out, Lq, Lk, C, g,
+      lay, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int geometry(int B, int Lq, int Lk, int C, int wq, int wc, int bk,
+             int* geom) {
+  cudaError_t err = allow_smem<T>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  AttnGeom g;
+  int occ = 0;
+  if (!pick_geom<T>(B, Lq, Lk, C, wq, wc, bk, &g, &occ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  geom[0] = g.wq;
+  geom[1] = g.wc;
+  geom[2] = g.bk;
+  geom[3] = 32 * g.wq * g.wc;
+  geom[4] = g.blocks;
+  geom[5] = occ;
+  geom[6] = static_cast<int>(attn_smem(g, sizeof(T)).total);
+  return 0;
+}
+
+bool pow2_upto(int v, int hi) { return v >= 0 && v <= hi && !(v & (v - 1)); }
+
+bool valid_call(int B, int Lq, int Lk, int C, int wq, int wc, int bk) {
+  return B >= 1 && Lq >= 1 && Lk >= 1 && C % 8 == 0 && C >= 8 && C <= 256 &&
+         pow2_upto(wq, kMaxGroups) && pow2_upto(wc, 4) &&
+         (bk == 0 || bk == 32 || bk == 64);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs.
+// Bytes of dynamic shared memory of the largest geometry at this C (four
+// query groups of two warps, 64-key tiles): every geometry fits in this.
 size_t attention_smem_bytes(int C, int itemsize) {
-  return attention_smem(C, itemsize);
+  return attn_smem(attn_geom(1, 1, C, itemsize, kMaxGroups, 2, 64), itemsize)
+      .total;
 }
 
 const char* attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype: 0 = fp32, 1 = bf16 (x and y); out is fp32 (B, Lq, C). Returns the
-// CUDA error code of the launch (0 on success).
-int attention_forward(int dtype, const void* x, const void* y, void* out,
-                      int B, int Lq, int Lk, int C, void* stream) {
-  if (B < 1 || Lq < 1 || Lk < 1 || C % 8 != 0 || C < 8 || C > 256)
+// The geometry a call would take: geom = {wq, wc, bk, threads, blocks,
+// blocks an SM, smem bytes}. wq (1, 2, 4), wc (1, 2, 4) and bk (32, 64)
+// fix it; 0 lets the launcher pick. Returns 0, or cudaErrorInvalidValue if
+// no geometry fits.
+int attention_geometry(int B, int Lq, int Lk, int C, int itemsize, int wq,
+                       int wc, int bk, int* geom) {
+  if (!valid_call(B, Lq, Lk, C, wq, wc, bk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (itemsize == 4) return geometry<float>(B, Lq, Lk, C, wq, wc, bk, geom);
+  if (itemsize == 2)
+    return geometry<__nv_bfloat16>(B, Lq, Lk, C, wq, wc, bk, geom);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// attention_forward with the geometry fixed: wq, wc and bk as for
+// attention_geometry, 0 letting the launcher pick.
+int attention_forward_geometry(int dtype, const void* x, const void* y,
+                               void* out, int B, int Lq, int Lk, int C,
+                               int wq, int wc, int bk, void* stream) {
+  if (!valid_call(B, Lq, Lk, C, wq, wc, bk))
     return static_cast<int>(cudaErrorInvalidValue);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, o, B, Lq, Lk, C, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, y, o, B, Lq, Lk, C, st);
+  if (dtype == 0) return launch<float>(x, y, o, B, Lq, Lk, C, wq, wc, bk, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, y, o, B, Lq, Lk, C, wq, wc, bk, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dtype: 0 = fp32, 1 = bf16 (x and y); out is fp32 (B, Lq, C). The launcher
+// picks the geometry. Returns the CUDA error code of the launch (0 on
+// success).
+int attention_forward(int dtype, const void* x, const void* y, void* out,
+                      int B, int Lq, int Lk, int C, void* stream) {
+  return attention_forward_geometry(dtype, x, y, out, B, Lq, Lk, C, 0, 0, 0,
+                                    stream);
 }
 
 }  // extern "C"

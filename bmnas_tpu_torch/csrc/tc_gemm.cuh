@@ -1,14 +1,20 @@
-// Tensor-core building blocks for the cell kernels (node_mixed.cu), through
-// the WMMA C++ API (nvcuda::wmma), so that no fragment layout is assumed.
+// Tensor-core building blocks for the cell kernels (node_mixed.cu) and the
+// attention kernel (attention.cu), through the WMMA C++ API (nvcuda::wmma),
+// so that no fragment layout is assumed.
 //
-//   * TcStep<T>: one MMA step of depth kK on 16x16 tiles, both operands
+//   * TcStep<T>: one MMA step of depth kK on 16x16 tiles, the A operand
 //     row-major in shared memory, fp32 accumulation. An A operand is loaded
 //     once (load_a) and multiplied into N output tiles at once (mma), each
-//     with its own B operand (load_b).
+//     with its own B operand (load_b): a row-major B (TcStep<T>::B) or the
+//     transpose of a row-major matrix read in place (TcStep<T>::BT, WMMA's
+//     col_major: S = Q K^T with K as it is stored).
 //       fp32 storage: 3xTF32, m16n16k8. Each operand v is split into
 //         hi = tf32(v) and lo = tf32(v - hi); the product is lo*hi + hi*lo
 //         + hi*hi (the small terms first), which keeps about fp32 accuracy
-//         (the lo*lo term, below 2^-22 of the product, is dropped).
+//         (the lo*lo term, below 2^-22 of the product, is dropped). A B
+//         operand that is exact in TF32 (bf16 values widened to fp32) is
+//         loaded unsplit (load_b_exact) and takes two products
+//         (mma_exact_b): lo*hi + hi*hi.
 //       bf16 storage: one bf16 MMA, m16n16k16; bf16 operands are exact.
 //   * cp_async_wait<N>() / cp_async_wait_n(n): wait until at most N (n)
 //     committed cp.async groups of this thread are still in flight
@@ -82,34 +88,57 @@ struct TcStep<float> {
                    wmma::row_major>
         hi, lo;
   };
-  struct B {
-    wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32,
-                   wmma::row_major>
+  template <typename Layout>
+  struct BOf {
+    wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, Layout>
         hi, lo;
   };
+  using B = BOf<wmma::row_major>;
+  using BT = BOf<wmma::col_major>;
 
   __device__ __forceinline__ static void load_a(A& a, const float* p,
                                                 int ld) {
     wmma::load_matrix_sync(a.hi, p, ld);
     split_tf32(a.hi, a.lo);
   }
-  __device__ __forceinline__ static void load_b(B& b, const float* p,
+  template <typename Frag>
+  __device__ __forceinline__ static void load_b(Frag& b, const float* p,
                                                 int ld) {
     wmma::load_matrix_sync(b.hi, p, ld);
     split_tf32(b.hi, b.lo);
   }
+  // A row-major B operand whose values are exact in TF32: b.lo stays unset
+  // and mma_exact_b does not read it.
+  __device__ __forceinline__ static void load_b_exact(B& b, const float* p,
+                                                      int ld) {
+    wmma::load_matrix_sync(b.hi, p, ld);
+  }
   // acc[c] += a b[c] for N tiles, the small terms first; one term of every
   // tile before the next term of any, so that consecutive MMAs never wait
   // on each other (a warp issues in order).
-  template <int N>
+  template <int N, typename Frag>
   __device__ __forceinline__ static void mma(Acc (&acc)[N], const A& a,
-                                             const B (&b)[N]) {
+                                             const Frag (&b)[N]) {
 #pragma unroll
     for (int c = 0; c < N; ++c) wmma::mma_sync(acc[c], a.lo, b[c].hi, acc[c]);
 #pragma unroll
     for (int c = 0; c < N; ++c) wmma::mma_sync(acc[c], a.hi, b[c].lo, acc[c]);
 #pragma unroll
     for (int c = 0; c < N; ++c) wmma::mma_sync(acc[c], a.hi, b[c].hi, acc[c]);
+  }
+  // acc += a b for one tile.
+  template <typename Frag>
+  __device__ __forceinline__ static void mma(Acc& acc, const A& a,
+                                             const Frag& b) {
+    wmma::mma_sync(acc, a.lo, b.hi, acc);
+    wmma::mma_sync(acc, a.hi, b.lo, acc);
+    wmma::mma_sync(acc, a.hi, b.hi, acc);
+  }
+  // acc += a b for one tile whose B operand came from load_b_exact.
+  __device__ __forceinline__ static void mma_exact_b(Acc& acc, const A& a,
+                                                     const B& b) {
+    wmma::mma_sync(acc, a.lo, b.hi, acc);
+    wmma::mma_sync(acc, a.hi, b.hi, acc);
   }
 };
 
@@ -122,27 +151,34 @@ struct TcStep<__nv_bfloat16> {
                    wmma::row_major>
         v;
   };
-  struct B {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major>
-        v;
+  template <typename Layout>
+  struct BOf {
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, Layout> v;
   };
+  using B = BOf<wmma::row_major>;
+  using BT = BOf<wmma::col_major>;
 
   __device__ __forceinline__ static void load_a(A& a,
                                                 const __nv_bfloat16* p,
                                                 int ld) {
     wmma::load_matrix_sync(a.v, p, ld);
   }
-  __device__ __forceinline__ static void load_b(B& b,
+  template <typename Frag>
+  __device__ __forceinline__ static void load_b(Frag& b,
                                                 const __nv_bfloat16* p,
                                                 int ld) {
     wmma::load_matrix_sync(b.v, p, ld);
   }
-  template <int N>
+  template <int N, typename Frag>
   __device__ __forceinline__ static void mma(Acc (&acc)[N], const A& a,
-                                             const B (&b)[N]) {
+                                             const Frag (&b)[N]) {
 #pragma unroll
     for (int c = 0; c < N; ++c) wmma::mma_sync(acc[c], a.v, b[c].v, acc[c]);
+  }
+  template <typename Frag>
+  __device__ __forceinline__ static void mma(Acc& acc, const A& a,
+                                             const Frag& b) {
+    wmma::mma_sync(acc, a.v, b.v, acc);
   }
 };
 

@@ -6,7 +6,12 @@ Replaces the Pallas TPU kernel
 ``(B, Lq, C)`` queries, y ``(B, Lk, C)``, the output fp32 whatever the input
 type. The kernel (``csrc/attention.cu``, whose note says what bounds it on an
 H100) keeps the ``(Lq, Lk)`` score matrix out of device memory with an online
-softmax over key tiles; the wrapper allocates only the output.
+softmax over key tiles, and runs both products on the tensor cores through
+WMMA: 3xTF32 for fp32 inputs; for bf16 inputs the scores in one bf16 MMA
+and ``P V`` in two TF32 products with P kept in fp32. A warp owns 16 query
+rows; the launcher picks how many query groups and warps a block has and
+the key tile (``geometry`` reads the pick). The wrapper allocates only the
+output.
 
 No entry point of the JAX package calls its kernel (only its tests do), and
 none of the port calls this one: it is a public function, held against its
@@ -28,7 +33,7 @@ import torch
 
 from bmnas_tpu_torch.ops.kernels import LAUNCHES
 
-MAX_C = 256  # channel quads of one row: 4 x 16 threads (attention.cu)
+MAX_C = 256  # 16 output tiles of 16 channels, at least two warps (attention.cu)
 
 
 def reference_attention(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -70,6 +75,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.attention_forward.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.attention_forward.restype = ci
+    lib.attention_forward_geometry.argtypes = [ci, vp, vp, vp, ci, ci, ci,
+                                               ci, ci, ci, ci, vp]
+    lib.attention_forward_geometry.restype = ci
+    lib.attention_geometry.argtypes = [ci, ci, ci, ci, ci, ci, ci, ci,
+                                       ctypes.POINTER(ci)]
+    lib.attention_geometry.restype = ci
     lib.attention_smem_bytes.argtypes = [ci, ci]
     lib.attention_smem_bytes.restype = ctypes.c_size_t
     lib.attention_error_string.argtypes = [ci]
@@ -77,15 +88,37 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def geometry(lib: ctypes.CDLL, B: int, Lq: int, Lk: int, C: int,
+             itemsize: int, wq: int = 0, wc: int = 0, bk: int = 0) -> dict:
+    """The launch geometry ``attention_forward`` takes for a call: query
+    groups of 16 rows a block (``wq``), warps a group (``wc``), keys a tile
+    (``bk``), threads and blocks, blocks an SM holds, and bytes of shared
+    memory a block. A nonzero ``wq``, ``wc`` or ``bk`` fixes that part; 0
+    lets the launcher pick, as the wrapper does."""
+    geom = (ctypes.c_int * 7)()
+    rc = lib.attention_geometry(B, Lq, Lk, C, itemsize, wq, wc, bk, geom)
+    if rc != 0:
+        raise ValueError(f"attention: no geometry hosts B={B}, Lq={Lq}, "
+                         f"Lk={Lk}, C={C}, wq={wq}, wc={wc}, bk={bk}")
+    return dict(zip(("wq", "wc", "bk", "threads", "blocks", "blocks_per_sm",
+                     "smem_bytes"), geom))
+
+
 def launch(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
-           stream: Optional[int]) -> torch.Tensor:
+           stream: Optional[int], wq: int = 0, wc: int = 0,
+           bk: int = 0) -> torch.Tensor:
     """Call ``attention_forward`` of a bound library on checked tensors and
-    return the fp32 output; raises if the launch returns an error."""
+    return the fp32 output; raises if the launch returns an error. A
+    nonzero ``wq``, ``wc`` or ``bk`` fixes that part of the geometry
+    (``attention_forward_geometry``), as for ``geometry``."""
     B, Lq, C = x.shape
     out = torch.empty(B, Lq, C, dtype=torch.float32, device=x.device)
-    rc = lib.attention_forward(
-        0 if x.dtype == torch.float32 else 1, x.data_ptr(), y.data_ptr(),
-        out.data_ptr(), B, Lq, y.shape[1], C, stream)
+    args = (0 if x.dtype == torch.float32 else 1, x.data_ptr(),
+            y.data_ptr(), out.data_ptr(), B, Lq, y.shape[1], C)
+    if wq or wc or bk:
+        rc = lib.attention_forward_geometry(*args, wq, wc, bk, stream)
+    else:
+        rc = lib.attention_forward(*args, stream)
     if rc != 0:
         raise RuntimeError("attention kernel launch failed: "
                            + lib.attention_error_string(rc).decode())

@@ -88,8 +88,11 @@ line) on any error:
    shapes, B=8 x L in {16, 512, 4096} at C=192, and ragged Lq != Lk. Times
    at B=8, C=192 in fp32 (CUDA events, median, L2 flushed) of the kernel,
    the plain version and ``F.scaled_dot_product_attention(x, y, y)`` (the
-   library yardstick; the port never calls it), beside the bound (the
-   larger of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s). At B=8, L=8192,
+   library yardstick; the port never calls it), the kernel's time over the
+   library's, the geometry the launcher picked, beside the bound (the
+   larger of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s) and the tensor
+   cores' bound (FLOP at the dense TF32 rate). ``--attention-sweep`` also
+   times every geometry the launcher could take at L=512 and 4096. At B=8, L=8192,
    C=192 the call may raise ``max_memory_allocated`` by at most its output
    plus 1 MiB: the score matrix never reaches device memory. No entry point
    of the JAX package calls this kernel; this phase is its only path.
@@ -1277,6 +1280,7 @@ ATTN_CASES = [
     (2, 130, 65, 24, 1.0),
 ]
 ATTN_TIMED = (16, 512, 4096)  # L at B=8, C=192, fp32
+ATTN_SWEPT = (512, 4096)  # L of --attention-sweep
 
 
 def attention_bound_ms(B, Lq, Lk, Cc, itemsize):
@@ -1287,6 +1291,17 @@ def attention_bound_ms(B, Lq, Lk, Cc, itemsize):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def attention_tc_bound_ms(B, Lq, Lk, Cc, itemsize):
+    """A second bound beside ``attention_bound_ms``, as
+    ``mixed_tc_bound_ms``: the same bytes and FLOP, the FLOP at the tensor
+    cores' dense rate (TF32 for fp32 inputs, bf16 for bf16). The kernel
+    runs 3xTF32 for fp32, three TF32 products for each fp32 one, so this
+    bound is not reachable there."""
+    nbytes = itemsize * B * (Lq + Lk) * Cc + 4 * B * Lq * Cc
+    rate = TF32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+    return max(nbytes / HBM_BYTES_PER_S, 4 * B * Lq * Lk * Cc / rate) * 1e3
 
 
 def attention_phase(device):
@@ -1333,11 +1348,16 @@ def attention_phase(device):
 def attention_times(device):
     """At B=8, C=192, fp32, for each L of ``ATTN_TIMED``: the kernel, the
     plain version and ``scaled_dot_product_attention`` (CUDA events,
-    median, L2 flushed), beside the bound."""
+    median, L2 flushed), the kernel's time over the library's and the
+    geometry the launcher picked, beside both bounds."""
+    from bmnas_tpu_torch.ops.kernels import _build
     from bmnas_tpu_torch.ops.kernels.attention import (
+        bind,
         blockwise_scaled_dot_attention,
+        geometry,
         reference_attention,
     )
+    lib = _build.load("attention", bind)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator().manual_seed(4)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
@@ -1350,12 +1370,63 @@ def attention_times(device):
              "plain_ms": time_ms(lambda: reference_attention(x, y), flush,
                                  True),
              "library_ms": time_ms(lambda: sdpa(x, y, y), flush, True)}
+        t["ms_over_library"] = t["ms"] / t["library_ms"]
         t["bound_ms"], t["bound_by"] = attention_bound_ms(BATCH, Ll, Ll, C, 4)
+        t["tc_bound_ms"] = attention_tc_bound_ms(BATCH, Ll, Ll, C, 4)
+        t["geometry"] = geometry(lib, BATCH, Ll, Ll, C, 4)
         out[Ll] = t
         log("  attention B=8 L={} C=192 fp32: ms={ms:.4f} plain_ms="
-            "{plain_ms:.4f} library_ms={library_ms:.4f} bound_ms="
-            "{bound_ms:.5f} ({bound_by})".format(Ll, **t))
+            "{plain_ms:.4f} library_ms={library_ms:.4f} ms/library="
+            "{ms_over_library:.3f} bound_ms={bound_ms:.5f} ({bound_by}) "
+            "tc_bound_ms={tc_bound_ms:.5f} geometry={geometry}".format(
+                Ll, **t))
     return out
+
+
+def attention_sweep(device):
+    """Every geometry the launcher could take (query groups a block, warps
+    a group, keys a tile) at B=8, C=192, fp32, L in (512, 4096): the
+    kernel's time under each (CUDA events, median, L2 flushed), checked
+    against the plain version once; the launcher's pick is marked."""
+    from bmnas_tpu_torch.ops.kernels import _build
+    from bmnas_tpu_torch.ops.kernels.attention import (
+        bind,
+        geometry,
+        launch,
+        reference_attention,
+    )
+    lib = _build.load("attention", bind)
+    gen = torch.Generator().manual_seed(5)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    rows = []
+    for Ll in ATTN_SWEPT:
+        x = torch.randn(BATCH, Ll, C, generator=gen).to(device)
+        y = torch.randn(BATCH, Ll, C, generator=gen).to(device)
+        want = reference_attention(x, y)
+        pick = geometry(lib, BATCH, Ll, Ll, C, 4)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for wq in (1, 2, 4):
+            for wc in (1, 2, 4):
+                for bk in (32, 64):
+                    try:
+                        g = geometry(lib, BATCH, Ll, Ll, C, 4, wq, wc, bk)
+                    except ValueError:
+                        continue
+                    def run(wq=wq, wc=wc, bk=bk):
+                        return launch(lib, x, y, stream, wq, wc, bk)
+                    err = float((run() - want).abs().max())
+                    row = dict(g, L=Ll, ms=time_ms(run, flush, True),
+                               max_abs_err=err,
+                               picked=(wq, wc, bk) == (pick["wq"],
+                                                       pick["wc"],
+                                                       pick["bk"]))
+                    rows.append(row)
+                    log("  attention sweep L={L:<5} wq={wq} wc={wc} bk={bk:<2}"
+                        " blocks={blocks:<4} per SM={blocks_per_sm} ms="
+                        "{ms:.4f} max_abs_err={max_abs_err:.3g}{mark}".format(
+                            mark=" (the launcher's pick)" if row["picked"]
+                            else "", **row))
+    return rows
 
 
 def attention_memory(device, B=8, Ll=8192):
@@ -1395,6 +1466,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full measurements as JSON here")
+    ap.add_argument("--attention-sweep", action="store_true",
+                    help="also time the attention kernel under every "
+                         "geometry at L=512 and 4096")
     args = ap.parse_args(argv)
     # phase 8 runs cuBLAS deterministically; cuBLAS reads this when CUDA
     # starts
@@ -1550,6 +1624,8 @@ def main(argv=None):
     main_path_launches["attention"] = dict(LAUNCHES)
     log(f"  attention memory: {report['attention_memory']}")
     report["attention_times"] = attn_times = attention_times(device)
+    if args.attention_sweep:
+        report["attention_sweep"] = attention_sweep(device)
 
     report["main_path_launches"] = main_path_launches
     for path, name in (("serve", "found_cell"), ("found", "found_cell"),
@@ -1624,6 +1700,9 @@ def main(argv=None):
         "bound_ms": attn512["bound_ms"],
         "bound_by": attn512["bound_by"],
         "library_ms": attn512["library_ms"],
+        "ms_over_library": attn512["ms_over_library"],
+        "tc_bound_ms": attn512["tc_bound_ms"],
+        "geometry": attn512["geometry"],
         "by_L": attn_times,
         "peak_growth_bytes_L8192": report["attention_memory"][
             "peak_growth_bytes"],

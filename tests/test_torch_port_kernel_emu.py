@@ -82,6 +82,9 @@ inline void emu_cp_wait(int n) {  // all but the newest n groups land
   }
 }
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  g_warp_barriers[threadIdx.x >> 5]->arrive_and_wait();
+}
 // a named barrier: made for its thread count at its first use in a block;
 // an arrival that does not wait counts toward it as well
 void emu_group_sync(int id, int n);
@@ -164,6 +167,7 @@ MMA_H = r"""
 #pragma once
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 #include "cuda_runtime.h"
 #include "cuda_bf16.h"
 namespace nvcuda {
@@ -172,6 +176,7 @@ struct matrix_a {};
 struct matrix_b {};
 struct accumulator {};
 struct row_major {};
+struct col_major {};
 namespace precision { struct tf32 {}; }
 enum layout_t { mem_row_major, mem_col_major };
 
@@ -230,6 +235,8 @@ inline void emu_check(const void* p, unsigned ldm, size_t elem) {
     g_emu_fault = true;  // WMMA's alignment rules
 }
 
+// A col_major operand's element (row, col) is p[col * ldm + row]: the
+// fragment holds the same tile as a row_major load of its transpose would.
 template <class Use, int M, int N, int K, class T, class Lay, class E>
 void load_matrix_sync(fragment<Use, M, N, K, T, Lay>& f, const E* p,
                       unsigned ldm) {
@@ -237,8 +244,24 @@ void load_matrix_sync(fragment<Use, M, N, K, T, Lay>& f, const E* p,
   emu_check(p, ldm, sizeof(E));
   const int lane = threadIdx.x & 31;
   for (int i = 0; i < F::num_elements; ++i) {
+    const int e = lane * F::num_elements + i, r = e / F::cols,
+              c = e % F::cols;
+    f.x[i] = std::is_same_v<Lay, col_major> ? p[c * ldm + r]
+                                            : p[r * ldm + c];
+  }
+}
+
+// an accumulator from memory, row-major only (as store_matrix_sync)
+template <int M, int N, int K>
+void load_matrix_sync(fragment<accumulator, M, N, K, float>& f,
+                      const float* p, unsigned ldm, layout_t layout) {
+  using F = fragment<accumulator, M, N, K, float>;
+  emu_check(p, ldm, sizeof(float));
+  if (layout != mem_row_major) g_emu_fault = true;
+  const int lane = threadIdx.x & 31;
+  for (int i = 0; i < F::num_elements; ++i) {
     const int e = lane * F::num_elements + i;
-    f.x[i] = p[(e / F::cols) * ldm + e % F::cols];
+    f.x[i] = p[(e / N) * ldm + e % N];
   }
 }
 
@@ -384,6 +407,38 @@ def _emulated_source(src: str) -> str:
     return '#include "cuda_runtime.h"\n' + src
 
 
+# The stand-in WMMA checked by itself: d = a k^T with k read in place as a
+# col_major B operand (k row-major, 16 rows of kK), as attention.cu reads
+# its keys.
+EMU_SELFTEST_CPP = r"""
+#include <mma.h>
+namespace wmma = nvcuda::wmma;
+template <class T, int kK>
+static int col_major_product(const T* a, const T* k, float* d) {
+  using Prec = std::conditional_t<kK == 8, wmma::precision::tf32, T>;
+  emu_launch(1, 32, 0, [=]() {
+    wmma::fragment<wmma::matrix_a, 16, 16, kK, Prec, wmma::row_major> fa;
+    wmma::fragment<wmma::matrix_b, 16, 16, kK, Prec, wmma::col_major> fb;
+    wmma::fragment<wmma::accumulator, 16, 16, kK, float> acc;
+    wmma::load_matrix_sync(fa, a, kK);
+    wmma::load_matrix_sync(fb, k, kK);
+    wmma::fill_fragment(acc, 0.f);
+    wmma::mma_sync(acc, fa, fb, acc);
+    wmma::store_matrix_sync(d, acc, 16, wmma::mem_row_major);
+  });
+  return cudaGetLastError();
+}
+extern "C" int emu_col_major_product(int bf16, const void* a, const void* k,
+                                     float* d) {
+  if (bf16)
+    return col_major_product<__nv_bfloat16, 16>(
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(k), d);
+  return col_major_product<float, 8>(static_cast<const float*>(a),
+                                     static_cast<const float*>(k), d);
+}
+"""
+
 KERNELS = ("found_cell", "node_mixed", "attention")
 
 
@@ -399,6 +454,7 @@ def emu_libs(tmp_path_factory):
     files = {"cuda_runtime.h": CUDA_RUNTIME_H, "cuda_bf16.h": CUDA_BF16_H,
              "emu_runtime.cpp": EMU_RUNTIME_CPP}
     files["mma.h"] = MMA_H
+    files["emu_selftest.cpp"] = EMU_SELFTEST_CPP
     for name, stand_ins in HEADER_STAND_INS.items():
         with open(os.path.join(_build.CSRC, name)) as f:
             files[name] = _emulated_header(f.read(), stand_ins)
@@ -411,11 +467,13 @@ def emu_libs(tmp_path_factory):
     subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC",
                     f"-I{d}", "-o", str(so),
                     *[str(d / f"{name}_emu.cpp") for name in KERNELS],
-                    str(d / "emu_runtime.cpp"), "-lpthread"],
+                    str(d / "emu_selftest.cpp"), str(d / "emu_runtime.cpp"),
+                    "-lpthread"],
                    check=True, capture_output=True, timeout=300)
     return {"found_cell": tnm.bind(ctypes.CDLL(str(so))),
             "node_mixed": tnm.bind_mixed(ctypes.CDLL(str(so))),
-            "attention": tat.bind(ctypes.CDLL(str(so)))}
+            "attention": tat.bind(ctypes.CDLL(str(so))),
+            "selftest": ctypes.CDLL(str(so))}
 
 
 @pytest.fixture(scope="module")
@@ -671,3 +729,127 @@ def test_attention_refuses_width(emu_libs):
     x = torch.randn(1, 4, 12)
     with pytest.raises(RuntimeError, match="launch failed"):
         tat.launch(emu_libs["attention"], x, x, None)
+
+
+def _attention_case(lib, B, Lq, Lk, C, dtype, seed, scale=1.0, **geom):
+    """The kernel (the launcher's geometry, or the one ``geom`` fixes)
+    against ``reference_attention`` on the same inputs, at the JAX kernel
+    test's tolerances: both sides read the same bf16 values and sum in
+    fp32, so bf16 is held to them too."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(B, Lq, C, generator=gen) * scale).to(dtype)
+    y = (torch.randn(B, Lk, C, generator=gen) * scale).to(dtype)
+    tat._check(x, y, 128, 128)
+    got = tat.launch(lib, x, y, None, **geom)
+    want = tat.reference_attention(x, y)
+    assert got.dtype == torch.float32 and got.shape == (B, Lq, C)
+    assert torch.isfinite(got).all()
+    rtol, atol = (2e-4, 2e-5) if scale == 1.0 else (1e-3, 1e-3)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C", [192, 256])
+def test_attention_wide_channels(emu_libs, C, dtype):
+    """The MM-IMDB width and the widest C at ragged lengths (Lq=33: three
+    query groups, the last of one row; Lk=70: a full key tile and a ragged
+    one); C=256 needs two warps a group for its 16 output tiles."""
+    _attention_case(emu_libs["attention"], 1, 33, 70, C, dtype, seed=C)
+
+
+def test_attention_bf16_ragged_key_tile(emu_libs):
+    """C=24 bf16 (padded to 32 channels in shared memory) with 32-key tiles,
+    the last of 13 keys: its zero rows and masked scores."""
+    _attention_case(emu_libs["attention"], 2, 20, 45, 24, torch.bfloat16,
+                    seed=45, bk=32)
+
+
+# (wq, wc, bk): every way a block splits its work
+ATTN_GEOMETRIES = [(1, 1, 32), (1, 4, 64), (2, 2, 32), (4, 2, 64)]
+
+
+def _max_moves(x, y, bk, slack=8.0):
+    """Whether some row's score max (log2 units) rises past the kernel's
+    running max by more than its slack after the first key tile, so that
+    the accumulator is rescaled."""
+    s = torch.einsum("blc,bmc->blm", x.double(), y.double()) \
+        / math.sqrt(x.shape[-1]) * math.log2(math.e)
+    m = s[..., :bk].amax(-1)
+    for k0 in range(bk, s.shape[-1], bk):
+        t = s[..., k0:k0 + bk].amax(-1)
+        if bool((t > m + slack).any()):
+            return True
+        m = torch.where(t > m + slack, t, m)
+    return False
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("wq,wc,bk", ATTN_GEOMETRIES,
+                         ids=[f"wq{a}-wc{b}-bk{c}" for a, b, c in
+                              ATTN_GEOMETRIES])
+def test_attention_geometries(emu_libs, wq, wc, bk, dtype):
+    """C=40 (three output tiles, so warps own different counts of them),
+    Lq=37, Lk=100 under each geometry. Key j is scaled by 1 + 0.05 j, so
+    the running max moves in later key tiles and O is rescaled, while the
+    softmax stays well conditioned: the fp32 reference is within the
+    tolerances of a float64 one, and the kernel is held to them."""
+    lib = emu_libs["attention"]
+    itemsize = 4 if dtype == torch.float32 else 2
+    geom = tat.geometry(lib, 2, 37, 100, 40, itemsize, wq, wc, bk)
+    assert (geom["wq"], geom["wc"], geom["bk"]) == (wq, wc, bk)
+    assert geom["threads"] == 32 * wq * wc
+    assert geom["blocks"] == 2 * -(-37 // (16 * wq))
+    gen = torch.Generator().manual_seed(wq * 100 + wc * 10 + bk)
+    x = torch.randn(2, 37, 40, generator=gen).to(dtype)
+    ramp = 1 + 0.05 * torch.arange(100).view(1, 100, 1)
+    y = (torch.randn(2, 100, 40, generator=gen) * ramp).to(dtype)
+    assert _max_moves(x, y, bk)
+    got = tat.launch(lib, x, y, None, wq=wq, wc=wc, bk=bk)
+    want = tat.reference_attention(x, y)
+    xd, yd = x.double(), y.double()
+    exact = (torch.einsum("blc,bmc->blm", xd, yd) / math.sqrt(40)).softmax(
+        -1) @ yd
+    torch.testing.assert_close(want.double(), exact, rtol=2e-4, atol=2e-5)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,L,pick", [
+    (8, 512, (2, 4, 64, 128)),
+    (8, 4096, (4, 2, 64, 512)),
+    (1, 16, (1, 4, 64, 1)),
+], ids=["B8-L512", "B8-L4096", "B1-L16"])
+def test_attention_launcher_picks(emu_libs, B, L, pick):
+    """At C=192 the launcher spreads the work over the card's 132 SMs: at
+    L=512 two query groups of four warps a block (128 blocks, one wave), at
+    L=4096 four groups of two warps (512 blocks), at B=1, L=16 one group of
+    four warps; in fp32 and bf16, within the shared memory a block may
+    take."""
+    for itemsize in (4, 2):
+        g = tat.geometry(emu_libs["attention"], B, L, L, 192, itemsize)
+        assert (g["wq"], g["wc"], g["bk"], g["blocks"]) == pick, g
+        assert g["blocks_per_sm"] >= 1
+        assert g["smem_bytes"] <= tnm.SMEM_LIMIT
+    assert emu_libs["attention"].attention_smem_bytes(256, 4) \
+        <= tnm.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_stand_in_col_major_load(emu_libs, dtype):
+    """The stand-in's col_major B operand read from a row-major k gives
+    a k^T: one warp's MMA against the transposed product, on values exact
+    in TF32 and bf16."""
+    kk = 8 if dtype == torch.float32 else 16
+    gen = torch.Generator().manual_seed(kk)
+    a = (torch.randint(-8, 9, (16, kk), generator=gen) / 4).to(dtype)
+    k = (torch.randint(-8, 9, (16, kk), generator=gen) / 4).to(dtype)
+    d = torch.full((16, 16), float("nan"))
+    rc = emu_libs["selftest"].emu_col_major_product(
+        ctypes.c_int(int(dtype == torch.bfloat16)),
+        ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+        ctypes.c_void_p(d.data_ptr()))
+    assert rc == 0
+    torch.testing.assert_close(d, a.float() @ k.float().T, rtol=0, atol=0)
