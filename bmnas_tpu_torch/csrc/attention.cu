@@ -19,7 +19,9 @@
 //
 // What the design does about it:
 //   * both products run on the tensor cores through WMMA (tc_gemm.cuh):
-//       fp32 inputs: S = Q K^T and O = P V in 3xTF32 (fp32 accuracy);
+//       fp32 inputs: S = Q K^T and O = P V in 3xTF32 (fp32 accuracy), S's
+//         three terms in three accumulators, so its MMAs do not wait on
+//         each other (a warp is bound by latency, not by the MMA rate);
 //       bf16 inputs: S in one bf16 MMA (exact products, fp32 sums); P stays
 //         fp32, split into TF32 hi and lo, and V (bf16, exact in TF32) is
 //         widened once a tile into an fp32 copy: two TF32 products. P is
@@ -67,7 +69,7 @@ namespace {
 
 constexpr int kMaxWarps = 8;      // warps a block
 constexpr int kMaxGroups = 4;     // query groups of 16 rows a block (wq)
-constexpr int kMaxKeyTiles = 4;   // 16-key score tiles a warp: bk / 16 / wc
+constexpr int kMaxKeyTiles = 2;   // 16-key score tiles a warp: bk / 16 / wc
 constexpr int kMaxColTiles = 8;   // 16-channel output tiles a warp
 constexpr int kMaxLaneKeys = 32;  // scores a lane holds in the softmax
 constexpr int kStageLd = 20;      // floats a row of a warp's staging tile
@@ -152,13 +154,75 @@ __device__ void stage_rows(T* dst, const T* src, int n, int rows, int C,
   }
 }
 
+// S = Q K^T for this warp's N key tiles j = wi + wc u (u < N), each
+// 3xTF32 term in an accumulator of its own, stored to the group's scores.
+// N is a template argument, so the loop holds no branch and every B
+// operand of a step is loaded before its MMAs. Tiles past the tile's last
+// key read zero rows; the softmax masks their scores.
+template <typename T, int N>
+__device__ __forceinline__ void score_tiles(const T* Qg, const T* K,
+                                            float* Pg, const AttnGeom& g,
+                                            int wi) {
+  using Step = TcStep<T>;
+  typename Step::Acc s[N][Step::kTerms];
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+#pragma unroll
+    for (int e = 0; e < Step::kTerms; ++e) wmma::fill_fragment(s[u][e], 0.f);
+#pragma unroll 2
+  for (int c = 0; c < g.cp; c += Step::kK) {
+    typename Step::A a;
+    typename Step::BT bt[N];
+    Step::load_a(a, Qg + c, g.qs);
+#pragma unroll
+    for (int u = 0; u < N; ++u)
+      Step::load_b(bt[u], K + 16 * (wi + g.wc * u) * g.ks + c, g.ks);
+#pragma unroll
+    for (int u = 0; u < N; ++u) Step::mma_terms(s[u], a, bt[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    Step::sum_terms(s[u]);
+    wmma::store_matrix_sync(Pg + 16 * (wi + g.wc * u), s[u][0], g.ps,
+                            wmma::mem_row_major);
+  }
+}
+
+// o[u] += P V over the tile's first kn keys for this warp's N output tiles
+// n = wi + wc u: 3xTF32 with V the fp32 key tile, or two TF32 products
+// with V's fp32 copy of bf16 keys (exact in TF32).
+template <typename T, int N>
+__device__ __forceinline__ void value_tiles(TcStep<float>::Acc* o,
+                                            const float* Pg, const float* V,
+                                            int ldv, int kn,
+                                            const AttnGeom& g, int wi) {
+  using F32 = TcStep<float>;
+#pragma unroll 2
+  for (int kk = 0; kk < kn; kk += F32::kK) {
+    typename F32::A pa;
+    typename F32::B bv[N];
+    F32::load_a(pa, Pg + kk, g.ps);
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const float* p = V + kk * ldv + 16 * (wi + g.wc * u);
+      if (sizeof(T) == 4)
+        F32::load_b(bv[u], p, ldv);
+      else
+        F32::load_b_exact(bv[u], p, ldv);
+    }
+    if (sizeof(T) == 4)
+      F32::mma(o, pa, bv);
+    else
+      F32::mma_exact_b(o, pa, bv);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(32 * kMaxWarps)
     attention_kernel(const T* __restrict__ x, const T* __restrict__ y,
                      float* __restrict__ out, int Lq, int Lk, int C,
                      AttnGeom g, AttnSmem lay, float scale_log2) {
   extern __shared__ __align__(128) float smem[];
-  using Step = TcStep<T>;
   using F32 = TcStep<float>;
   char* base = reinterpret_cast<char*>(smem);
   T* Qs = reinterpret_cast<T*>(base + lay.q);
@@ -192,8 +256,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     l_s[threadIdx.x] = 0.f;
   }
 
-  // O: output tiles n = wi + wc u of the group's 16 rows
+  // O: output tiles n = wi + wc u of the group's 16 rows, ncols of them
   const int ncol = g.cp / 16, nkey = g.bk / 16;
+  const int ncols = wi < ncol ? (ncol - wi + g.wc - 1) / g.wc : 0;
   typename F32::Acc o[kMaxColTiles];
 #pragma unroll
   for (int u = 0; u < kMaxColTiles; ++u) wmma::fill_fragment(o[u], 0.f);
@@ -221,32 +286,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       }
     }
 
-    // S = Q K^T for this warp's key tiles j = wi + wc u below kn
-    {
-      typename Step::Acc s[kMaxKeyTiles];
-#pragma unroll
-      for (int u = 0; u < kMaxKeyTiles; ++u) wmma::fill_fragment(s[u], 0.f);
-      for (int c = 0; c < g.cp; c += Step::kK) {
-        typename Step::A a;
-        Step::load_a(a, Qg + c, g.qs);
-#pragma unroll
-        for (int u = 0; u < kMaxKeyTiles; ++u) {
-          const int j = wi + g.wc * u;
-          if (j < nkey && 16 * j < kn) {
-            typename Step::BT bt;
-            Step::load_b(bt, K + 16 * j * g.ks + c, g.ks);
-            Step::mma(s[u], a, bt);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kMaxKeyTiles; ++u) {
-        const int j = wi + g.wc * u;
-        if (j < nkey && 16 * j < kn)
-          wmma::store_matrix_sync(Pg + 16 * j, s[u], g.ps,
-                                  wmma::mem_row_major);
-      }
-    }
+    // S = Q K^T for this warp's key tiles (nkey / wc of them)
+    if (nkey == g.wc)
+      score_tiles<T, 1>(Qg, K, Pg, g, wi);
+    else
+      score_tiles<T, 2>(Qg, K, Pg, g, wi);
     __syncthreads();  // the group's scores (and V's fp32 copy) are set
 
     // online softmax of row srow over the tile's keys sub + lpr e
@@ -309,24 +353,19 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
         }
       }
     }
-    for (int kk = 0; kk < kn; kk += F32::kK) {
-      typename F32::A pa;
-      F32::load_a(pa, Pg + kk, g.ps);
-#pragma unroll
-      for (int u = 0; u < kMaxColTiles; ++u) {
-        const int n = wi + g.wc * u;
-        if (n < ncol) {
-          typename F32::B bv;
-          if (sizeof(T) == 4) {
-            F32::load_b(bv, reinterpret_cast<const float*>(K) +
-                                kk * g.ks + 16 * n, g.ks);
-            F32::mma(o[u], pa, bv);
-          } else {
-            F32::load_b_exact(bv, V32 + kk * g.vs + 16 * n, g.vs);
-            F32::mma_exact_b(o[u], pa, bv);
-          }
-        }
-      }
+    const float* V = sizeof(T) == 4 ? reinterpret_cast<const float*>(K)
+                                    : V32;
+    const int ldv = sizeof(T) == 4 ? g.ks : g.vs;
+    switch (ncols) {
+      case 1: value_tiles<T, 1>(o, Pg, V, ldv, kn, g, wi); break;
+      case 2: value_tiles<T, 2>(o, Pg, V, ldv, kn, g, wi); break;
+      case 3: value_tiles<T, 3>(o, Pg, V, ldv, kn, g, wi); break;
+      case 4: value_tiles<T, 4>(o, Pg, V, ldv, kn, g, wi); break;
+      case 5: value_tiles<T, 5>(o, Pg, V, ldv, kn, g, wi); break;
+      case 6: value_tiles<T, 6>(o, Pg, V, ldv, kn, g, wi); break;
+      case 7: value_tiles<T, 7>(o, Pg, V, ldv, kn, g, wi); break;
+      case 8: value_tiles<T, 8>(o, Pg, V, ldv, kn, g, wi); break;
+      default: break;  // a warp with no output tile (C < 16 wc)
     }
   }
 
@@ -408,6 +447,7 @@ bool pick_geom(int B, int Lq, int Lk, int C, int wq_req, int wc_req,
         const AttnGeom g = attn_geom(B, Lq, C, sizeof(T), wq, wc, bk);
         const int warps = wq * wc;
         if (warps > kMaxWarps || bk / 16 < wc ||
+            bk / 16 > kMaxKeyTiles * wc ||
             (g.cp / 16 + wc - 1) / wc > kMaxColTiles || g.blocks < 1)
           continue;
         const size_t smem = attn_smem(g, sizeof(T)).total;

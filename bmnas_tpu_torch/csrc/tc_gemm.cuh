@@ -11,7 +11,8 @@
 //       fp32 storage: 3xTF32, m16n16k8. Each operand v is split into
 //         hi = tf32(v) and lo = tf32(v - hi); the product is lo*hi + hi*lo
 //         + hi*hi (the small terms first), which keeps about fp32 accuracy
-//         (the lo*lo term, below 2^-22 of the product, is dropped). A B
+//         (the lo*lo term, below 2^-22 of the product, is dropped);
+//         mma_terms keeps the three terms in three accumulators. A B
 //         operand that is exact in TF32 (bf16 values widened to fp32) is
 //         loaded unsplit (load_b_exact) and takes two products
 //         (mma_exact_b): lo*hi + hi*hi.
@@ -113,11 +114,12 @@ struct TcStep<float> {
                                                       int ld) {
     wmma::load_matrix_sync(b.hi, p, ld);
   }
-  // acc[c] += a b[c] for N tiles, the small terms first; one term of every
-  // tile before the next term of any, so that consecutive MMAs never wait
-  // on each other (a warp issues in order).
+  // acc[c] += a b[c] for N tiles (acc: the first N of an array), the small
+  // terms first; one term of every tile before the next term of any, so
+  // that consecutive MMAs never wait on each other (a warp issues in
+  // order).
   template <int N, typename Frag>
-  __device__ __forceinline__ static void mma(Acc (&acc)[N], const A& a,
+  __device__ __forceinline__ static void mma(Acc* acc, const A& a,
                                              const Frag (&b)[N]) {
 #pragma unroll
     for (int c = 0; c < N; ++c) wmma::mma_sync(acc[c], a.lo, b[c].hi, acc[c]);
@@ -126,19 +128,32 @@ struct TcStep<float> {
 #pragma unroll
     for (int c = 0; c < N; ++c) wmma::mma_sync(acc[c], a.hi, b[c].hi, acc[c]);
   }
-  // acc += a b for one tile.
+  // acc[i] += term i of a b for one tile: lo*hi, hi*lo and hi*hi each in
+  // an accumulator of its own, so that the three MMAs of a step do not
+  // wait on each other; sum_terms adds them, the small terms first.
+  static constexpr int kTerms = 3;
   template <typename Frag>
-  __device__ __forceinline__ static void mma(Acc& acc, const A& a,
-                                             const Frag& b) {
-    wmma::mma_sync(acc, a.lo, b.hi, acc);
-    wmma::mma_sync(acc, a.hi, b.lo, acc);
-    wmma::mma_sync(acc, a.hi, b.hi, acc);
+  __device__ __forceinline__ static void mma_terms(Acc (&acc)[kTerms],
+                                                   const A& a,
+                                                   const Frag& b) {
+    wmma::mma_sync(acc[0], a.lo, b.hi, acc[0]);
+    wmma::mma_sync(acc[1], a.hi, b.lo, acc[1]);
+    wmma::mma_sync(acc[2], a.hi, b.hi, acc[2]);
   }
-  // acc += a b for one tile whose B operand came from load_b_exact.
-  __device__ __forceinline__ static void mma_exact_b(Acc& acc, const A& a,
-                                                     const B& b) {
-    wmma::mma_sync(acc, a.lo, b.hi, acc);
-    wmma::mma_sync(acc, a.hi, b.hi, acc);
+  __device__ __forceinline__ static void sum_terms(Acc (&acc)[kTerms]) {
+#pragma unroll
+    for (int i = 0; i < acc[0].num_elements; ++i)
+      acc[0].x[i] = (acc[0].x[i] + acc[1].x[i]) + acc[2].x[i];
+  }
+  // acc[c] += a b[c] for N tiles whose B operands came from load_b_exact,
+  // interleaved as in mma.
+  template <int N>
+  __device__ __forceinline__ static void mma_exact_b(Acc* acc, const A& a,
+                                                     const B (&b)[N]) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) wmma::mma_sync(acc[c], a.lo, b[c].hi, acc[c]);
+#pragma unroll
+    for (int c = 0; c < N; ++c) wmma::mma_sync(acc[c], a.hi, b[c].hi, acc[c]);
   }
 };
 
@@ -170,16 +185,19 @@ struct TcStep<__nv_bfloat16> {
     wmma::load_matrix_sync(b.v, p, ld);
   }
   template <int N, typename Frag>
-  __device__ __forceinline__ static void mma(Acc (&acc)[N], const A& a,
+  __device__ __forceinline__ static void mma(Acc* acc, const A& a,
                                              const Frag (&b)[N]) {
 #pragma unroll
     for (int c = 0; c < N; ++c) wmma::mma_sync(acc[c], a.v, b[c].v, acc[c]);
   }
+  static constexpr int kTerms = 1;  // one product: mma_terms is mma
   template <typename Frag>
-  __device__ __forceinline__ static void mma(Acc& acc, const A& a,
-                                             const Frag& b) {
-    wmma::mma_sync(acc, a.v, b.v, acc);
+  __device__ __forceinline__ static void mma_terms(Acc (&acc)[kTerms],
+                                                   const A& a,
+                                                   const Frag& b) {
+    wmma::mma_sync(acc[0], a.v, b.v, acc[0]);
   }
+  __device__ __forceinline__ static void sum_terms(Acc (&)[kTerms]) {}
 };
 
 }  // namespace
