@@ -56,9 +56,10 @@
 // Shared memory (bytes, fp32 / bf16 inputs): Q 16 wq (cp + pad) s, two key
 // tiles 2 bk (cp + pad) s (pad: 16 bytes a row, s the storage size), bf16
 // only an fp32 copy of V bk (cp + 4) 4, the scores / P 16 wq (bk + 4) 4,
-// one 16x20 fp32 staging tile a warp and m, l and the corrections. At
-// wq = 4, wc = 2, bk = 64 (the largest): C = 192 178,944 / 155,392, C =
-// 256 228,096 / 196,352, within the 232,448 a block may take.
+// one 16x20 fp32 staging tile a warp and m, l and the corrections. The
+// largest geometry at C = 192 (wq = 4, wc = 2, bk = 64) takes 178,944 /
+// 155,392; at C = 256 (wq = 2, wc = 4, bk = 64) 185,728 / 170,368; a block
+// may take 232,448.
 //
 // Requirements: C % 8 == 0, 8 <= C <= 256, B, Lq, Lk >= 1, checked here;
 // 16-byte aligned x, y and out, checked by the wrapper.
@@ -70,8 +71,11 @@ namespace {
 constexpr int kMaxWarps = 8;      // warps a block
 constexpr int kMaxGroups = 4;     // query groups of 16 rows a block (wq)
 constexpr int kMaxKeyTiles = 2;   // 16-key score tiles a warp: bk / 16 / wc
-constexpr int kMaxColTiles = 8;   // 16-channel output tiles a warp
-constexpr int kMaxLaneKeys = 32;  // scores a lane holds in the softmax
+// Per-thread arrays sized for the geometries the launcher allows, so that
+// no register spills: at most 6 output tiles a warp (C = 256 takes four
+// warps a group) and bk / 2 wc <= 16 scores a lane in the softmax.
+constexpr int kMaxColTiles = 6;   // 16-channel output tiles a warp
+constexpr int kMaxLaneKeys = 16;  // scores a lane holds in the softmax
 constexpr int kStageLd = 20;      // floats a row of a warp's staging tile
 constexpr int kDefaultSms = 132;  // H100 SXM, if the device cannot say
 constexpr float kNegInf = -1e30f;
@@ -363,8 +367,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       case 4: value_tiles<T, 4>(o, Pg, V, ldv, kn, g, wi); break;
       case 5: value_tiles<T, 5>(o, Pg, V, ldv, kn, g, wi); break;
       case 6: value_tiles<T, 6>(o, Pg, V, ldv, kn, g, wi); break;
-      case 7: value_tiles<T, 7>(o, Pg, V, ldv, kn, g, wi); break;
-      case 8: value_tiles<T, 8>(o, Pg, V, ldv, kn, g, wi); break;
       default: break;  // a warp with no output tile (C < 16 wc)
     }
   }
@@ -526,8 +528,8 @@ bool valid_call(int B, int Lq, int Lk, int C, int wq, int wc, int bk) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory of the largest geometry at this C (four
-// query groups of two warps, 64-key tiles): every geometry fits in this.
+// Bytes of dynamic shared memory of four query groups of two warps and
+// 64-key tiles at this C: no geometry the launcher allows takes more.
 size_t attention_smem_bytes(int C, int itemsize) {
   return attn_smem(attn_geom(1, 1, C, itemsize, kMaxGroups, 2, 64), itemsize)
       .total;

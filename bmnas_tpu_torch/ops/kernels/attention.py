@@ -33,7 +33,7 @@ import torch
 
 from bmnas_tpu_torch.ops.kernels import LAUNCHES
 
-MAX_C = 256  # 16 output tiles of 16 channels, at least two warps (attention.cu)
+MAX_C = 256  # 16 output tiles of 16 channels, four warps a group (attention.cu)
 
 
 def reference_attention(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -92,7 +92,9 @@ line) on any error:
    library's, the geometry the launcher picked, beside the bound (the
    larger of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s) and the tensor
    cores' bound (FLOP at the dense TF32 rate). ``--attention-sweep`` also
-   times every geometry the launcher could take at L=512 and 4096. At B=8, L=8192,
+   times every geometry the launcher could take at L=512 and 4096, and
+   ``--attention-ablation`` copies of the kernel with one part of the
+   work taken out (``ATTN_ABLATIONS``). At B=8, L=8192,
    C=192 the call may raise ``max_memory_allocated`` by at most its output
    plus 1 MiB: the score matrix never reaches device memory. No entry point
    of the JAX package calls this kernel; this phase is its only path.
@@ -1429,6 +1431,84 @@ def attention_sweep(device):
     return rows
 
 
+# --attention-ablation: copies of csrc/attention.cu and its headers, each
+# with one part of the work taken out (file, text, replacement); what a
+# removal saves is what that part costs. Their outputs are wrong by design
+# and are not checked. The compiler drops the loads and operand splits
+# whose products are gone, so "S" and "P V" time each product whole.
+ATTN_ABLATIONS = {
+    "S lo terms": [("tc_gemm.cuh",
+                    "    wmma::mma_sync(acc[0], a.lo, b.hi, acc[0]);\n"
+                    "    wmma::mma_sync(acc[1], a.hi, b.lo, acc[1]);\n", "")],
+    "P V lo terms": [("tc_gemm.cuh",
+                      "#pragma unroll\n    for (int c = 0; c < N; ++c) "
+                      "wmma::mma_sync(acc[c], a.lo, b[c].hi, acc[c]);\n"
+                      "#pragma unroll\n    for (int c = 0; c < N; ++c) "
+                      "wmma::mma_sync(acc[c], a.hi, b[c].lo, acc[c]);\n",
+                      "")],
+    "S": [("attention.cu", "Step::mma_terms(s[u], a, bt[u]);", ";")],
+    "P V": [("attention.cu", "F32::mma(o, pa, bv);", ";"),
+            ("attention.cu", "F32::mma_exact_b(o, pa, bv);", ";")],
+    "exp2": [("attention.cu", "exp2f(sv[e] - m_new)", "(sv[e] - m_new)")],
+}
+ATTN_ABLATIONS["S and P V"] = ATTN_ABLATIONS["S"] + ATTN_ABLATIONS["P V"]
+
+
+def attention_ablation(device):
+    """Each variant of ``ATTN_ABLATIONS`` built (one nvcc each, all at
+    once) and timed against the kernel itself at B=8, C=192, fp32, L in
+    ``ATTN_SWEPT``, under the kernel's own geometry (CUDA events, median,
+    L2 flushed)."""
+    import ctypes
+    from bmnas_tpu_torch.ops.kernels import _build
+    from bmnas_tpu_torch.ops.kernels.attention import bind, geometry, launch
+    root = os.path.join(_build.BUILD_DIR, "ablation")
+    procs = {}
+    for name, subs in ATTN_ABLATIONS.items():
+        d = os.path.join(root, name.replace(" ", "_"))
+        os.makedirs(d, exist_ok=True)
+        for fname in ("attention.cu", "tc_gemm.cuh", "cell_common.cuh"):
+            with open(os.path.join(_build.CSRC, fname)) as f:
+                text = f.read()
+            for target, old, new in subs:
+                if target == fname:
+                    if old not in text:
+                        raise AssertionError(f"ablation {name!r}: text not "
+                                             f"found in {fname}")
+                    text = text.replace(old, new, 1)
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(text)
+        procs[name] = (d, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+             os.path.join(d, "lib.so"), os.path.join(d, "attention.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {"none (the kernel)": _build.load("attention", bind)}
+    for name, (d, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"ablation {name!r} did not build:\n{out}")
+        libs[name] = bind(ctypes.CDLL(os.path.join(d, "lib.so")))
+    gen = torch.Generator().manual_seed(7)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rows = []
+    for Ll in ATTN_SWEPT:
+        x = torch.randn(BATCH, Ll, C, generator=gen).to(device)
+        y = torch.randn(BATCH, Ll, C, generator=gen).to(device)
+        g = geometry(libs["none (the kernel)"], BATCH, Ll, Ll, C, 4)
+        full = None
+        for name, lib in libs.items():
+            def run(lib=lib):
+                return launch(lib, x, y, stream, g["wq"], g["wc"], g["bk"])
+            ms = time_ms(run, flush, True)
+            full = ms if full is None else full
+            rows.append({"L": Ll, "removed": name, "ms": ms,
+                         "saved_ms": full - ms})
+            log(f"  attention ablation L={Ll:<5} removed {name:<18} "
+                f"ms={ms:.4f} saved_ms={full - ms:.4f}")
+    return rows
+
+
 def attention_memory(device, B=8, Ll=8192):
     """The kernel at B=8, Lq=Lk=8192, C=192 fp32 raises the peak of
     allocated device memory by at most its output plus 1 MiB (the dense
@@ -1469,6 +1549,9 @@ def main(argv=None):
     ap.add_argument("--attention-sweep", action="store_true",
                     help="also time the attention kernel under every "
                          "geometry at L=512 and 4096")
+    ap.add_argument("--attention-ablation", action="store_true",
+                    help="also time copies of the attention kernel with "
+                         "one part of the work taken out")
     args = ap.parse_args(argv)
     # phase 8 runs cuBLAS deterministically; cuBLAS reads this when CUDA
     # starts
@@ -1626,6 +1709,8 @@ def main(argv=None):
     report["attention_times"] = attn_times = attention_times(device)
     if args.attention_sweep:
         report["attention_sweep"] = attention_sweep(device)
+    if args.attention_ablation:
+        report["attention_ablation"] = attention_ablation(device)
 
     report["main_path_launches"] = main_path_launches
     for path, name in (("serve", "found_cell"), ("found", "found_cell"),
