@@ -30,10 +30,12 @@
 //   * a warp owns 16 query rows and a share of the key and channel tiles.
 //     A block is wq query groups of 16 rows times wc warps a group (at most
 //     8 warps); a group's wc warps split S's 16-key tiles, the softmax's
-//     rows and P V's 16-channel tiles among them. The launcher picks
-//     (wq, wc, bk) for the call so that the grid covers the card (the
-//     occupancy calculator says how many blocks an SM holds);
-//     attention_geometry() says what it picked.
+//     rows and P V's 16-channel tiles among them. A warp's tile counts are
+//     template arguments (score_tiles, value_tiles), so the product loops
+//     hold no branch and a step's B operands all load before its MMAs.
+//     The launcher picks (wq, wc, bk) for the call so that the grid covers
+//     the card (the occupancy calculator says how many blocks an SM
+//     holds); attention_geometry() says what it picked.
 //   * key tiles of bk (32 or 64) rows stream through a double buffer in
 //     shared memory by cp.async in their storage type, the next tile in
 //     flight while the current one is used; the query tile is staged once.
@@ -52,6 +54,12 @@
 //     P is. The softmax takes 2 wc lanes a row, max and sum by shuffles.
 //   * block_q / block_k of the TPU kernel sized VMEM tiles of a sequential
 //     grid; the wrapper keeps them for the signature only.
+//
+// Measured on an H100 (chip_smoke.py phase 9's sweep and ablation): the
+// two products take about 80% of the time at L = 4096, well below the
+// tensor cores' rate; each warp is bound by latency (time falls about in
+// proportion to warps an SM), and registers and shared memory hold an SM
+// to 8 warps.
 //
 // Shared memory (bytes, fp32 / bf16 inputs): Q 16 wq (cp + pad) s, two key
 // tiles 2 bk (cp + pad) s (pad: 16 bytes a row, s the storage size), bf16

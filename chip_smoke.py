@@ -91,10 +91,10 @@ line) on any error:
    library yardstick; the port never calls it), the kernel's time over the
    library's, the geometry the launcher picked, beside the bound (the
    larger of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s) and the tensor
-   cores' bound (FLOP at the dense TF32 rate). ``--attention-sweep`` also
-   times every geometry the launcher could take at L=512 and 4096, and
-   ``--attention-ablation`` copies of the kernel with one part of the
-   work taken out (``ATTN_ABLATIONS``). At B=8, L=8192,
+   cores' bound (FLOP at the dense TF32 rate). At L=512 and 4096 the
+   kernel is also timed under every geometry the launcher could take (its
+   pick marked) and as copies with one part of the work taken
+   out (``ATTN_ABLATIONS``), which say what each part costs. At B=8, L=8192,
    C=192 the call may raise ``max_memory_allocated`` by at most its output
    plus 1 MiB: the score matrix never reaches device memory. No entry point
    of the JAX package calls this kernel; this phase is its only path.
@@ -1282,7 +1282,7 @@ ATTN_CASES = [
     (2, 130, 65, 24, 1.0),
 ]
 ATTN_TIMED = (16, 512, 4096)  # L at B=8, C=192, fp32
-ATTN_SWEPT = (512, 4096)  # L of --attention-sweep
+ATTN_SWEPT = (512, 4096)  # L of the geometry sweep and the ablation
 
 
 def attention_bound_ms(B, Lq, Lk, Cc, itemsize):
@@ -1431,7 +1431,7 @@ def attention_sweep(device):
     return rows
 
 
-# --attention-ablation: copies of csrc/attention.cu and its headers, each
+# The ablation: copies of csrc/attention.cu and its headers, each
 # with one part of the work taken out (file, text, replacement); what a
 # removal saves is what that part costs. Their outputs are wrong by design
 # and are not checked. The compiler drops the loads and operand splits
@@ -1546,12 +1546,6 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full measurements as JSON here")
-    ap.add_argument("--attention-sweep", action="store_true",
-                    help="also time the attention kernel under every "
-                         "geometry at L=512 and 4096")
-    ap.add_argument("--attention-ablation", action="store_true",
-                    help="also time copies of the attention kernel with "
-                         "one part of the work taken out")
     args = ap.parse_args(argv)
     # phase 8 runs cuBLAS deterministically; cuBLAS reads this when CUDA
     # starts
@@ -1707,10 +1701,8 @@ def main(argv=None):
     main_path_launches["attention"] = dict(LAUNCHES)
     log(f"  attention memory: {report['attention_memory']}")
     report["attention_times"] = attn_times = attention_times(device)
-    if args.attention_sweep:
-        report["attention_sweep"] = attention_sweep(device)
-    if args.attention_ablation:
-        report["attention_ablation"] = attention_ablation(device)
+    report["attention_sweep"] = attention_sweep(device)
+    report["attention_ablation"] = attention_ablation(device)
 
     report["main_path_launches"] = main_path_launches
     for path, name in (("serve", "found_cell"), ("found", "found_cell"),
