@@ -36,6 +36,9 @@ NOT_PORTED = {
                         "Queue 1 item 6, data-path infrastructure"),
     "--parallel": (lambda a: a.parallel,
                    "Queue 1 item 7, multi-device"),
+    "--task_variant": (lambda a: getattr(a, "task_variant", "bmnas")
+                       != "bmnas", "Queue 1 item 4, the NTU search and "
+                       "found CLI"),
     # the serve CLI's top parser (cli/serve.py)
     "--export": (lambda a: getattr(a, "export", None) is not None,
                  "Queue 1 item 10, torch.export"),
@@ -48,7 +51,9 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
                      batchsize: int, C: int, L: int, num_input_nodes: int,
                      num_outputs: int, eta_max: float = 1e-3,
                      epochs: int = 30, node_steps: int = 1,
-                     steps: int = 2) -> None:
+                     steps: int = 2, node_multiplier: int = 1,
+                     drpt: float = 0.1, weight_decay: float = 1e-4,
+                     num_workers: int = 32, Ti: int = 1) -> None:
     parser.add_argument('--seed', type=int, default=2, help='random seed')
     parser.add_argument('--save', type=str, default='EXP',
                         help='where to save the experiment')
@@ -56,7 +61,7 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
                         help='data directory')
     parser.add_argument('--small_dataset', action='store_true', default=False,
                         help='use mini dataset for debugging')
-    parser.add_argument('--num_workers', type=int, default=32,
+    parser.add_argument('--num_workers', type=int, default=num_workers,
                         help='dataloader threads')
     parser.add_argument('--use_dataparallel', dest='parallel',
                         action='store_true', default=False,
@@ -66,7 +71,7 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
                         help='alias of --use_dataparallel')
     parser.add_argument('--batchsize', type=int, default=batchsize)
     parser.add_argument('--epochs', type=int, default=epochs)
-    parser.add_argument('--drpt', action='store', default=0.1, dest='drpt',
+    parser.add_argument('--drpt', action='store', default=drpt, dest='drpt',
                         type=float, help='dropout')
     parser.add_argument('--num_input_nodes', type=int, default=num_input_nodes,
                         help='total number of modality features')
@@ -81,7 +86,8 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
     parser.add_argument('--steps', type=int, default=steps, help='cell steps')
     parser.add_argument('--node_steps', type=int, default=node_steps,
                         help='inner node steps')
-    parser.add_argument('--node_multiplier', type=int, default=1,
+    parser.add_argument('--node_multiplier', type=int,
+                        default=node_multiplier,
                         help='inner node output concat')
     parser.add_argument('--num_outputs', type=int, default=num_outputs,
                         help='output dimension')
@@ -89,12 +95,12 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
                         help='learning rate for arch encoding')
     parser.add_argument('--arch_weight_decay', type=float, default=1e-3,
                         help='weight decay for arch encoding')
-    parser.add_argument('--weight_decay', type=float, default=1e-4)
+    parser.add_argument('--weight_decay', type=float, default=weight_decay)
     parser.add_argument('--eta_max', type=float, default=eta_max,
                         help='max learning rate')
     parser.add_argument('--eta_min', type=float, default=1e-6,
                         help='min learning rate')
-    parser.add_argument('--Ti', type=int, default=1,
+    parser.add_argument('--Ti', type=int, default=Ti,
                         help='cosine annealing epochs Ti')
     parser.add_argument('--Tm', type=int, default=2,
                         help='cosine annealing multiplier Tm')
@@ -123,6 +129,55 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
     parser.add_argument('--grain_workers', type=int, default=0,
                         help='grain worker processes (0 = in-process; '
                              'above 0 not ported yet)')
+
+
+def parse_ntu_found_args(argv=None) -> argparse.Namespace:
+    """The flags of the JAX package's NTU found CLI
+    (``bmnas_tpu/cli/ntu.py::parse_found_args``) at their defaults: C=128,
+    L=8, steps 4, multiplier 2, node_steps 2, node_multiplier 2, 8 input
+    nodes, 60 classes, batch 96, ``--vid_len 8 32`` frames of
+    ``--vid_dim`` 256. The serve CLI reads the model, data and
+    ``--node_variant`` flags; the backbone checkpoints, ``--modality``,
+    ``--momentum`` and the schedule are the training CLI's."""
+    parser = argparse.ArgumentParser(description='Modality optimization.')
+    add_common_flags(parser, datadir_default='BM-NAS_dataset/NTU/',
+                     batchsize=96, C=128, L=8, num_input_nodes=8,
+                     num_outputs=60, eta_max=3e-4, epochs=50, node_steps=2,
+                     steps=4, node_multiplier=2, drpt=0.2,
+                     weight_decay=3e-4, num_workers=16, Ti=5)
+    parser.add_argument('--j', dest='num_workers', type=int)
+    parser.add_argument('--checkpointdir', type=str, default='checkpoints/ntu')
+    parser.add_argument('--ske_cp', type=str,
+                        default='skeleton_32frames_85.24.checkpoint')
+    parser.add_argument('--rgb_cp', type=str,
+                        default='rgb_8frames_83.91.checkpoint')
+    parser.add_argument('--imagenet_cp', type=str,
+                        default='resnet50_imagenet.pth')
+    parser.add_argument('--modality', type=str, default='both')
+    parser.add_argument('--vid_dim', action='store', default=256, type=int)
+    parser.add_argument('--vid_fr', action='store', default=30, type=int)
+    parser.add_argument('--vid_len', action='store', default=(8, 32),
+                        type=int, nargs='+')
+    parser.add_argument('--remat', action='store_true', default=False,
+                        help='recompute backbone activations in the '
+                             'backward pass (no effect in eval)')
+    parser.add_argument('--device_cache_budget_gb', type=float, default=10.0,
+                        help='(not ported yet) --device_data_cache budget')
+    parser.add_argument('--search_exp_dir', type=str, default=None)
+    parser.add_argument('--fused_kernels', action='store_true',
+                        help='run eval found cells through the found-cell '
+                             'kernel wrapper on the CPU too (on CUDA they '
+                             'always run the kernel)')
+    parser.add_argument('--node_variant', type=str, default='bmnas',
+                        choices=['bmnas', 'darts', 'mfas', 'aoa',
+                                 'two_head_attn'])
+    parser.add_argument('--task_variant', type=str, default='bmnas',
+                        choices=['bmnas', 'simple_concat', 'ensemble_concat',
+                                 'ensemble', 'simple_concat_attn'],
+                        help='whole-net ablation baselines (not ported yet)')
+    parser.add_argument('--eval_exp_dir', type=str, default=None)
+    parser.add_argument('--momentum', type=float, default=0.9)
+    return parser.parse_args(argv)
 
 
 def model_kwargs_from_args(args) -> dict:

@@ -1,16 +1,19 @@
 """Batch-inference serving CLI on top of ``bmnas_tpu_torch.serving``.
 
-Port of ``bmnas_tpu/cli/serve.py::main_serve`` for ``--task mmimdb``. It
-loads a found experiment's genotype and model snapshot and serves a
-dataset split through ``FoundNetServer`` on one device:
+Port of ``bmnas_tpu/cli/serve.py::main_serve`` for ``--task mmimdb`` and
+``--task ntu``. It loads a found experiment's genotype and model snapshot
+and serves a dataset split through ``FoundNetServer`` on one device; the
+task's own flags are its found CLI's (``cli/mmimdb.py::parse_found_args``,
+``cli/common.py::parse_ntu_found_args``):
 
-    python -m bmnas_tpu_torch.cli.serve --task mmimdb --eval_exp_dir <exp> \\
-        --datadir <root> [--bf16] [--fused_kernels] [--split test] \\
-        [--device cpu]
+    python -m bmnas_tpu_torch.cli.serve --task mmimdb|ntu \\
+        --eval_exp_dir <exp> --datadir <root> [--bf16] [--fused_kernels] \\
+        [--split test] [--device cpu]
 
 It runs on CUDA unless ``--device cpu`` is given, and raises when there is
 no CUDA device. Prints one JSON line: {"metric", "value", "samples",
-"samples_per_sec", ...}.
+"samples_per_sec", ...}; the metric is the weighted F1 for MM-IMDB and the
+accuracy (argmax) for NTU.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 # later slices of the port, by ROADMAP.md Queue 1 item
-_LATER_TASKS = {"ntu": "the NTU slice", "ego": "the Ego slice"}
+_LATER_TASKS = {"ego": "the Ego slice"}
 
 
 def _resolve_artifacts(exp_dir: str, model_path: str = None):
@@ -48,12 +51,51 @@ def _resolve_artifacts(exp_dir: str, model_path: str = None):
     return geno, snap
 
 
-def _metric(logits: np.ndarray, labels: np.ndarray):
-    from bmnas_tpu_torch.cli.mmimdb import TH_FSCORE
-    from bmnas_tpu_torch.utils.metrics import f1_from_counts, multilabel_counts
-    preds = torch.from_numpy(1.0 / (1.0 + np.exp(-logits)) > TH_FSCORE)
-    counts = multilabel_counts(preds, torch.from_numpy(labels))
-    return "weighted_f1", f1_from_counts(counts, "weighted")
+def _parse_task_args(task: str, rest):
+    if task == "mmimdb":
+        from bmnas_tpu_torch.cli.mmimdb import parse_found_args
+        return parse_found_args(rest)
+    from bmnas_tpu_torch.cli.common import parse_ntu_found_args
+    return parse_ntu_found_args(rest)
+
+
+def _build_task(task: str, args, genotype, device):
+    """The task's found net (as each found CLI builds it)."""
+    from bmnas_tpu_torch.cli.common import model_kwargs_from_args
+    kwargs = dict(node_variant=args.node_variant,
+                  fused_eval=args.fused_kernels, device=device,
+                  **model_kwargs_from_args(args))
+    if task == "mmimdb":
+        from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
+        return FoundImageTextNet.from_genotype(genotype, **kwargs)
+    from bmnas_tpu_torch.models.ntu import FoundSkeletonImageNet
+    return FoundSkeletonImageNet.from_genotype(genotype, **kwargs)
+
+
+def _dataset(task: str, args, split: str):
+    if task == "mmimdb":
+        from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
+        return MMIMDBDataset(args.datadir, split,
+                             small_dataset=args.small_dataset,
+                             num_workers=args.num_workers)
+    from bmnas_tpu_torch.data.ntu import NTUDataset
+    return NTUDataset(args.datadir, split, small_dataset=args.small_dataset,
+                      vid_len=tuple(args.vid_len), vid_dim=args.vid_dim,
+                      num_workers=args.num_workers)
+
+
+def _metric(task: str, logits: np.ndarray, labels: np.ndarray):
+    if task == "mmimdb":
+        from bmnas_tpu_torch.cli.mmimdb import TH_FSCORE
+        from bmnas_tpu_torch.utils.metrics import (
+            f1_from_counts,
+            multilabel_counts,
+        )
+        preds = torch.from_numpy(1.0 / (1.0 + np.exp(-logits)) > TH_FSCORE)
+        counts = multilabel_counts(preds, torch.from_numpy(labels))
+        return "weighted_f1", f1_from_counts(counts, "weighted")
+    acc = float((logits.argmax(-1) == labels.astype(np.int64)).mean())
+    return "accuracy", acc
 
 
 def main_serve(argv=None):
@@ -91,29 +133,20 @@ def main_serve(argv=None):
     from bmnas_tpu_torch.device import resolve_device
     device = resolve_device(args0.device)
 
-    from bmnas_tpu_torch.cli.common import fail_fast_checks, model_kwargs_from_args
-    from bmnas_tpu_torch.cli.mmimdb import parse_found_args
-    args = parse_found_args(rest)
+    from bmnas_tpu_torch.cli.common import fail_fast_checks
+    args = _parse_task_args(args0.task, rest)
     fail_fast_checks(args)
 
-    from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
     from bmnas_tpu_torch.genotype import load_genotype
-    from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
     from bmnas_tpu_torch.serving import load_server
 
     geno_path, snap_path = _resolve_artifacts(args0.eval_exp_dir, args0.model)
-    genotype = load_genotype(geno_path)
-    model = FoundImageTextNet.from_genotype(
-        genotype, node_variant=args.node_variant,
-        fused_eval=args.fused_kernels, device=device,
-        **model_kwargs_from_args(args))
+    model = _build_task(args0.task, args, load_genotype(geno_path), device)
     server = load_server(snap_path, model,
                          dtype=torch.bfloat16 if args0.bf16
                          else torch.float32,
                          fused=args.fused_kernels, device=device)
-    dataset = MMIMDBDataset(args.datadir, args0.split,
-                            small_dataset=args.small_dataset,
-                            num_workers=args.num_workers)
+    dataset = _dataset(args0.task, args, args0.split)
 
     logits_parts, labels_parts = [], []
     n_total = n_warm = n_batches = 0
@@ -132,7 +165,7 @@ def main_serve(argv=None):
     steady = time.perf_counter() - t_warm
     logits = np.concatenate(logits_parts, axis=0)
     labels = np.concatenate(labels_parts, axis=0)
-    name, value = _metric(logits, labels)
+    name, value = _metric(args0.task, logits, labels)
     result = {
         "metric": name,
         "value": round(value, 6),

@@ -1,6 +1,6 @@
-"""Synthetic MM-IMDB-shaped data on disk (numpy; the port's own copy of
-``bmnas_tpu/data/synthetic.make_mmimdb_synthetic``: the same seed writes
-the same files)."""
+"""Synthetic MM-IMDB- and NTU-shaped data on disk (numpy; the port's own
+copy of ``bmnas_tpu/data/synthetic.make_mmimdb_synthetic`` and
+``make_ntu_synthetic``: the same seed writes the same files)."""
 from __future__ import annotations
 
 import os
@@ -36,4 +36,50 @@ def make_mmimdb_synthetic(root: str, n_per_stage: int = 8,
             np.save(os.path.join(d, f"image_{i:06}.npy"), img)
             np.save(os.path.join(d, f"text_{i:06}.npy"), txt)
             np.save(os.path.join(d, f"label_{i:06}.npy"), lab)
+    return root
+
+
+def _write_skeleton_file(path: str, num_frames: int, rng) -> None:
+    """The NTU ``.skeleton`` text format that ``data.ntu.get_3d_skeleton``
+    reads: two persons of 25 joints a frame."""
+    lines = [str(num_frames)]
+    for _ in range(num_frames):
+        lines.append("2")                        # persons
+        for _p in range(2):
+            lines.append("0 0 0 0 0 0 0 0 0 2")  # body info line
+            lines.append("25")                   # joint count line
+            for _j in range(25):
+                xyz = rng.randn(3) * 0.1
+                lines.append(" ".join(f"{v:.4f}" for v in xyz)
+                             + " 0 0 0 0 0 0 0 2")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def make_ntu_synthetic(root: str, n_videos_per_subject: int = 1,
+                       subjects=(1, 2, 3, 8, 5, 6), num_actions: int = 6,
+                       hw: int = 32, frames: int = 70, seed: int = 0,
+                       ske_frames: int = None) -> str:
+    """Write ``*_rgb.npy`` uint8 clips of ``frames`` x hw x hw and
+    ``.skeleton`` files of ``ske_frames`` frames (default ``frames``), named
+    S###C###P###R###A### so that the subject splits and labels apply.
+
+    Past 900 clips a subject, the R field rolls over into higher camera
+    numbers (C002, ...), as in the real corpus.
+    """
+    rng = np.random.RandomState(seed)
+    ske_frames = frames if ske_frames is None else ske_frames
+    rgb_dir = os.path.join(root, "nturgb+d_rgb_256x256_30")
+    ske_dir = os.path.join(root, "nturgb+d_skeletons")
+    os.makedirs(rgb_dir, exist_ok=True)
+    os.makedirs(ske_dir, exist_ok=True)
+    for subj in subjects:
+        for r in range(n_videos_per_subject):
+            action = rng.randint(1, num_actions + 1)
+            name = (f"S001C{1 + r // 900:03d}P{subj:03d}"
+                    f"R{(r % 900) + 1:03d}A{action:03d}")
+            clip = rng.randint(0, 256, (frames, hw, hw, 3), dtype=np.uint8)
+            np.save(os.path.join(rgb_dir, name + "_rgb.npy"), clip)
+            _write_skeleton_file(os.path.join(ske_dir, name + ".skeleton"),
+                                 ske_frames, rng)
     return root

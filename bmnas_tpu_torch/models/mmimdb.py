@@ -155,7 +155,10 @@ class FoundImageTextNet(nn.Module):
         self.genotype = genotype
         self.imagenet = GPVGG(num_outputs, **kw)
         self.textnet = MaxOutMLP(num_outputs, **kw)
-        self.used = tuple(sorted({idx for _, idx in genotype[0]}))
+        # an edge may also read an earlier step's output (index >= the
+        # number of inputs), which needs no reshape layer
+        self.used = tuple(sorted({idx for _, idx in genotype[0]
+                                  if idx < len(MMIMDB_C_INS)}))
         for i in self.used:
             self.add_module(f"reshape_{i}", ReshapeInputLayerMMIMDB(
                 MMIMDB_C_INS[i], C, L, drpt, **kw))

@@ -8,27 +8,40 @@ flax scope names (``Dense_0``, ``BatchNorm_0``) so that
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 
+def _adaptive_bins(in_size: int, out_size: int) -> List[Tuple[int, int]]:
+    """AdaptiveMaxPool bin bounds: [floor(i*I/O), ceil((i+1)*I/O))."""
+    return [(i * in_size // out_size, -(-(i + 1) * in_size // out_size))
+            for i in range(out_size)]
+
+
 def adaptive_max_pool_1d(x: torch.Tensor, out_size: int, axis: int
                          ) -> torch.Tensor:
-    """torch AdaptiveMaxPool1d along any axis (the reference's semantics)."""
-    x = x.movedim(axis, -1)
-    lead = x.shape[:-1]
-    out = F.adaptive_max_pool1d(x.reshape(-1, 1, x.shape[-1]), out_size)
-    return out.reshape(*lead, out_size).movedim(-1, axis)
+    """torch AdaptiveMaxPool1d along any axis (the reference's semantics),
+    as the JAX package computes it: a slice max per static bin, stacked.
+
+    ``F.adaptive_max_pool1d`` gives the same values, but its CUDA backward
+    adds by atomics in no fixed order and sends a tie's whole gradient to
+    one element; ``amax`` over a slice has no scatter and splits a tie's
+    gradient evenly, as ``jax.grad`` of the JAX pool does.
+    """
+    axis = axis % x.dim()
+    return torch.stack([x.narrow(axis, s, e - s).amax(dim=axis)
+                        for s, e in _adaptive_bins(x.shape[axis], out_size)],
+                       dim=axis)
 
 
 def adaptive_max_pool_2d(x: torch.Tensor, out_hw: Tuple[int, int]
                          ) -> torch.Tensor:
     """Adaptive max pool over the spatial axes of an NHWC map."""
-    out = F.adaptive_max_pool2d(x.permute(0, 3, 1, 2), out_hw)
-    return out.permute(0, 2, 3, 1)
+    return adaptive_max_pool_1d(adaptive_max_pool_1d(x, out_hw[0], 1),
+                                out_hw[1], 2)
 
 
 def interpolate_nearest_1d(x: torch.Tensor, out_size: int, axis: int
@@ -80,18 +93,31 @@ class BatchNorm(nn.BatchNorm1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
-        x = x.reshape(-1, shape[-1])
+        return self._norm(x.reshape(-1, shape[-1])).reshape(shape)
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalize ``(N, C, ...)`` over every axis but 1."""
         if not self.training:
-            return super().forward(x).reshape(shape)
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                            self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=0, correction=0)
+            axes = [d for d in range(x.dim()) if d != 1]
+            var, mean = torch.var_mean(x.float(), dim=axes, correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
-        return out.reshape(shape)
+        return out
+
+
+class ChannelsFirstBatchNorm(BatchNorm):
+    """The same BatchNorm on a channels-first ``(N, C, ...)`` map (the
+    convolution stacks run channels-first on cuDNN)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._norm(x)
 
 
 class GlobalPooling2D(nn.Module):
@@ -160,11 +186,11 @@ class ReshapeInputLayerMMIMDB(_ProjectBNReLU):
 
     ``(B, C_in)`` vectors are 1x1 maps, so pooling replicates them into all
     L bins, as the reference's AdaptiveMaxPool2d does on a (C, 1, 1) map.
-    Here they are replicated by ``expand``: the same values, and a backward
-    that sums the L gradients by a reduction. The pool's CUDA backward adds
-    them with atomics in no fixed order, so two runs of found retraining
-    (which trains the text backbone through this layer) would part in the
-    last bits.
+    Here they are replicated by ``expand``: the same values and input
+    gradient as the pool, with one broadcast in place of L one-element
+    slices. Maps go through :func:`adaptive_max_pool_2d`, whose backward
+    has no scatter, so found retraining (which trains both backbones
+    through this layer) is deterministic on CUDA.
     """
 
     def __init__(self, C_in: int, C: int, L: int, drpt: float, device=None,

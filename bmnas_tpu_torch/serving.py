@@ -3,8 +3,10 @@
 Port of ``bmnas_tpu/serving.py`` (FoundNetServer, load_server): a found
 task net in eval mode on one device, fp32 or bf16 weights and activations
 (logits returned in fp32), fixed-size batches with a ``mask``, valid rows
-trimmed on return. Every FoundNodeCell folds its BatchNorms once, when the
-server is built; on CUDA each cell then runs the found-cell kernel.
+trimmed on return. Integer inputs (NTU's uint8 clips) are uploaded as
+they are and normalized by the model on the device. Every FoundNodeCell
+folds its BatchNorms once, when the server is built; on CUDA each cell
+then runs the found-cell kernel.
 """
 from __future__ import annotations
 
@@ -42,11 +44,17 @@ class FoundNetServer:
 
     def _inputs(self, batch: Mapping[str, np.ndarray]
                 ) -> Dict[str, torch.Tensor]:
+        """The model's inputs on the device: floating arrays in the
+        server's dtype, integer ones (an NTU batch's uint8 clip, which the
+        model normalizes) as they are."""
         keys = self.input_keys or [k for k in batch
                                    if k not in ("label", "mask")]
-        return {k: torch.as_tensor(batch[k]).to(self.device, self.dtype,
-                                                non_blocking=True)
-                for k in keys}
+        out = {}
+        for k in keys:
+            t = torch.as_tensor(batch[k])
+            out[k] = t.to(self.device, self.dtype if t.is_floating_point()
+                          else t.dtype, non_blocking=True)
+        return out
 
     @torch.inference_mode()
     def predict(self, batch: Mapping[str, np.ndarray]) -> np.ndarray:

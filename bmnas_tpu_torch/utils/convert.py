@@ -9,8 +9,9 @@ The port names its submodules after the flax scopes, so the mapping is
 mechanical:
 
 * a scope path ``a/b/c`` becomes the key prefix ``a.b.c``;
-* ``kernel`` -> ``weight``: a conv's HWIO becomes OIHW, a dense layer's
-  (in, out) becomes ``Linear.weight``'s (out, in);
+* ``kernel`` -> ``weight``: a 2-D conv's HWIO becomes OIHW, a 3-D conv's
+  (kT, kH, kW, I, O) becomes ``Conv3d.weight``'s (O, I, kT, kH, kW), a
+  dense layer's (in, out) becomes ``Linear.weight``'s (out, in);
 * ``scale`` -> ``weight`` (BatchNorm and LayerNorm2D; LayerNorm2D's (L, C)
   keeps its shape), ``bias`` -> ``bias``;
 * ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``,
@@ -41,6 +42,12 @@ import numpy as np
 import torch
 
 _BN_INNER = "BatchNorm_0"
+# flax kernel layout -> torch weight layout, by the kernel's rank
+_KERNEL_AXES = {
+    2: lambda a: a.T,                            # (in, out) -> (out, in)
+    4: lambda a: a.transpose(3, 2, 0, 1),        # HWIO -> OIHW
+    5: lambda a: a.transpose(4, 3, 0, 1, 2),     # THWIO -> OITHW
+}
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -74,7 +81,10 @@ def state_dict_from_jax(params: Mapping[str, Any],
         scope, leaf = path[:-1], path[-1]
         bn = bool(scope) and scope[-1] == _BN_INNER
         if leaf == "kernel":
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            if a.ndim not in _KERNEL_AXES:
+                raise KeyError(f"no torch layout for the {a.ndim}-D kernel "
+                               f"{'/'.join(path)}")
+            a = _KERNEL_AXES[a.ndim](a)
             sd[_key(scope, "weight", False)] = _tensor(a)
         elif leaf == "scale":
             sd[_key(scope, "weight", bn)] = _tensor(a)

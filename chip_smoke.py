@@ -12,13 +12,16 @@ line) on any error:
    ``nvcc`` per source, all started together.
 3. found_cell vs plain: the found-cell kernel against its plain PyTorch
    version on the card, for seven cell configurations at L=16, C=192, B in
-   {8, 37, 96}, in fp32 (tolerance 1e-4 abs + 1e-4 rel) and bf16 (2e-2 abs
+   {8, 37, 96}, and for the four cells that phase 10 serves (two chained
+   steps, multiplier 2, so the out-conv runs) at L=8, C=128, B in {4, 8,
+   96}, in fp32 (tolerance 1e-4 abs + 1e-4 rel) and bf16 (2e-2 abs
    + 2e-2 rel; both sides round the same fp32 result to bf16 once). Times
    (CUDA events, median, L2 flushed before each launch) at B=8 and B=96:
    device time (``ms``, host dispatch hidden behind a sleep kernel) and
    call time (``call_ms``, host dispatch included), for the kernel and the
    plain version, beside each configuration's bound (the larger of bytes /
-   3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic type).
+   3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic type)
+   and its tensor-core bound (the FLOP at the dense TF32 or bf16 rate).
 4. node_mixed vs plain: the supernet's mixed-op kernel against its plain
    version at L=16, C=192, B in {5, 8, 37, 96}, fp32 and bf16 (the same
    tolerances), with softmaxed random branch weights and each of the four
@@ -80,7 +83,8 @@ line) on any error:
    phase). The resumed run must run the second epoch only, and the final
    parameters, BatchNorm statistics and the second epoch's losses and F1
    must agree within 1e-6. The largest differences are printed, with the
-   ops that ran without a deterministic CUDA kernel.
+   ops that ran without a deterministic CUDA kernel; found retraining must
+   run none.
 9. attention vs plain: the blockwise attention kernel against its plain
    version in fp32 and bf16 inputs (rtol 2e-4 / atol 2e-5, 1e-3 for scores
    scaled by 30; both sides read the same values), output fp32, on the
@@ -98,12 +102,29 @@ line) on any error:
    C=192 the call may raise ``max_memory_allocated`` by at most its output
    plus 1 MiB: the score matrix never reaches device memory. No entry point
    of the JAX package calls this kernel; this phase is its only path.
-10. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
+10. NTU serve: a synthetic NTU test split written by the port's
+   ``make_ntu_synthetic`` (100 samples of the test subjects: uint8 clips of
+   8 frames at 256x256, 40-frame skeletons; a full batch of 96 and a
+   ragged one of 4) and a found experiment dir (a genotype of four found
+   cells of two chained inner steps, every inner op among them, node
+   multiplier 2, and a seeded snapshot with He-initialised convolutions
+   and randomized BatchNorm statistics), served through
+   ``main_serve --task ntu`` at the NTU defaults (C=128, L=8, steps 4,
+   node_steps 2, node_multiplier 2, 8 input nodes, 60 classes, the full
+   inflated 3D ResNet-50 and HCN) in fp32 and in bf16. The found-cell
+   kernel must launch exactly 4 times a batch, the logits must be finite,
+   the accuracy line printed. The first 2 samples' logits on CUDA and on
+   the CPU must agree within 1e-3 (TF32 off). Then the breakdown of a
+   request of 96 (median of 5) in fp32 and bf16, as in phase 5, with the
+   FLOP of the backbone's convolutions and a profiler trace of the
+   request (device busy ms, idle share, launches, longest kernels).
+11. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every kernel must launch on its path (found_cell: serving, the found test
-phase and test-only; node_mixed: the search's eval step; attention: phase
-9): the counts are set to 0 just before each path and read just after it.
+phase, test-only and NTU serving; node_mixed: the search's eval step;
+attention: phase 9): the counts are set to 0 just before each path and read
+just after it.
 """
 from __future__ import annotations
 
@@ -142,6 +163,16 @@ CONFIGS = [
     (3, 1, ("ScaleDotAttn", "Sum", "ConcatFC")),
 ]
 TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the NTU serving width (phase 10) and its cells' inner op pairs: two
+# chained steps (the second reads the first's output), multiplier 2, so
+# every call runs the out-conv
+NTU_L, NTU_C = 8, 128
+NTU_KERNEL_CONFIGS = [
+    (2, 2, ("LinearGLU", "LinearGLU")),
+    (2, 2, ("ScaleDotAttn", "ConcatFC")),
+    (2, 2, ("ConcatFC", "Sum")),
+    (2, 2, ("Sum", "ScaleDotAttn")),
+]
 
 
 def log(msg: str) -> None:
@@ -165,7 +196,7 @@ def chain_edges(node_steps):
                  for e in (("skip", i), ("skip", i + 1)))
 
 
-def random_params(gen, S, m, dtype, device):
+def random_params(gen, S, m, dtype, device, L=L, C=C):
     from bmnas_tpu_torch.ops.kernels.node_mixed import FoundCellParams
 
     def r(*shape, k=1.0):
@@ -180,7 +211,7 @@ def random_params(gen, S, m, dtype, device):
         ln2_scale=r(L, C), ln2_bias=r(L, C))
 
 
-def cell_work(B, steps_cfg, m, itemsize):
+def cell_work(B, steps_cfg, m, itemsize, L=L, C=C):
     """(bytes, FLOP) one call must move and compute: x, y and out once, each
     weight the configuration uses once; GEMMs at 2 FLOP per multiply-add,
     elementwise work at one FLOP per element and operation."""
@@ -205,11 +236,20 @@ def cell_work(B, steps_cfg, m, itemsize):
     return nbytes * itemsize, flops
 
 
-def bound_ms(B, steps_cfg, m, itemsize):
-    nbytes, flops = cell_work(B, steps_cfg, m, itemsize)
+def bound_ms(B, steps_cfg, m, itemsize, L=L, C=C):
+    nbytes, flops = cell_work(B, steps_cfg, m, itemsize, L, C)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def tc_bound_ms(B, steps_cfg, m, itemsize, L=L, C=C):
+    """``bound_ms`` with the FLOP at the tensor cores' dense rate for the
+    storage type (TF32 for fp32, bf16 for bf16): what a tensor-core
+    redesign of the kernel could at best reach."""
+    nbytes, flops = cell_work(B, steps_cfg, m, itemsize, L, C)
+    rate = TF32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+    return max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
 
 
 def time_ms(fn, flush, hide_host, iters=30, warmup=3):
@@ -236,58 +276,78 @@ def time_ms(fn, flush, hide_host, iters=30, warmup=3):
 
 
 def kernel_phase(device):
+    """The MM-IMDB width (``CONFIGS`` at L=16, C=192, B in 8/37/96), then
+    the NTU serving width (``NTU_KERNEL_CONFIGS`` at L=8, C=128, B in
+    4/8/96, 4 being the ragged last batch of phase 10)."""
+    gen = torch.Generator().manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    rows = []
+    for node_steps, m, ops in CONFIGS:
+        rows += cell_cases(gen, flush, device, node_steps, m, ops, L, C,
+                           (8, 37, 96))
+    for node_steps, m, ops in NTU_KERNEL_CONFIGS:
+        rows += cell_cases(gen, flush, device, node_steps, m, ops, NTU_L,
+                           NTU_C, (4, 8, 96))
+    return rows
+
+
+def cell_cases(gen, flush, device, node_steps, m, ops, Ll, Cc, batches):
+    """One cell configuration against its plain version in fp32 and bf16 at
+    each B of ``batches``, timed at B=8 and B=96."""
     from bmnas_tpu_torch.ops.kernels import LAUNCHES
     from bmnas_tpu_torch.ops.kernels.node_mixed import (
         found_cell_steps_cfg,
         found_node_cell_fused,
         found_node_cell_reference,
     )
-    gen = torch.Generator().manual_seed(0)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
     rows = []
-    for node_steps, m, ops in CONFIGS:
-        cfg = found_cell_steps_cfg(chain_edges(node_steps), ops)
-        for dtype in (torch.float32, torch.bfloat16):
-            p = random_params(gen, node_steps, m, dtype, device)
-            for B in (8, 37, 96):
-                x = torch.randn(B, L, C, generator=gen).to(device, dtype)
-                y = torch.randn(B, L, C, generator=gen).to(device, dtype)
-                before = LAUNCHES["found_cell"]
-                got = found_node_cell_fused(x, y, p, cfg, m)
-                torch.cuda.synchronize()
-                launched = LAUNCHES["found_cell"] - before
-                want = found_node_cell_reference(x, y, p, cfg, m)
-                g, w = got.float(), want.float()
-                err = (g - w).abs()
-                tol = TOLS[dtype]
-                ok = bool(torch.isfinite(g).all()) and bool(
-                    (err <= tol + tol * w.abs()).all())
-                row = {"ops": "+".join(ops), "node_steps": node_steps,
-                       "m": m, "B": B, "dtype": str(dtype).split(".")[-1],
-                       "launches": launched,
-                       "max_abs_err": float(err.max()),
-                       "tolerance": tol, "ok": ok}
-                if B in (8, 96):
-                    kern = lambda: found_node_cell_fused(  # noqa: E731
-                        x, y, p, cfg, m)
-                    plain = lambda: found_node_cell_reference(  # noqa: E731
-                        x, y, p, cfg, m)
-                    row["ms"] = time_ms(kern, flush, True)
-                    row["plain_ms"] = time_ms(plain, flush, True)
-                    row["call_ms"] = time_ms(kern, flush, False)
-                    row["plain_call_ms"] = time_ms(plain, flush, False)
-                    row["bound_ms"], row["bound_by"] = bound_ms(
-                        B, cfg, m, x.element_size())
-                rows.append(row)
-                log("  found_cell {ops:<30} B={B:<3} {dtype:<8} "
-                    "max_abs_err={max_abs_err:.3g} ok={ok}".format(**row)
-                    + ("  ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                       "bound_ms={bound_ms:.5f} call_ms={call_ms:.4f} "
-                       "plain_call_ms={plain_call_ms:.4f}".format(**row)
-                       if "ms" in row else ""))
-                if not ok or launched != 1:
-                    raise AssertionError(f"found_cell disagrees with its "
-                                         f"plain version: {row}")
+    cfg = found_cell_steps_cfg(chain_edges(node_steps), ops)
+    for dtype in (torch.float32, torch.bfloat16):
+        p = random_params(gen, node_steps, m, dtype, device, Ll, Cc)
+        for B in batches:
+            x = torch.randn(B, Ll, Cc, generator=gen).to(device, dtype)
+            y = torch.randn(B, Ll, Cc, generator=gen).to(device, dtype)
+            before = LAUNCHES["found_cell"]
+            got = found_node_cell_fused(x, y, p, cfg, m)
+            torch.cuda.synchronize()
+            launched = LAUNCHES["found_cell"] - before
+            want = found_node_cell_reference(x, y, p, cfg, m)
+            g, w = got.float(), want.float()
+            err = (g - w).abs()
+            tol = TOLS[dtype]
+            ok = bool(torch.isfinite(g).all()) and bool(
+                (err <= tol + tol * w.abs()).all())
+            row = {"ops": "+".join(ops), "node_steps": node_steps,
+                   "m": m, "L": Ll, "C": Cc, "B": B,
+                   "dtype": str(dtype).split(".")[-1],
+                   "launches": launched,
+                   "max_abs_err": float(err.max()),
+                   "tolerance": tol, "ok": ok}
+            if B in (8, 96):
+                kern = lambda: found_node_cell_fused(  # noqa: E731
+                    x, y, p, cfg, m)
+                plain = lambda: found_node_cell_reference(  # noqa: E731
+                    x, y, p, cfg, m)
+                row["ms"] = time_ms(kern, flush, True)
+                row["plain_ms"] = time_ms(plain, flush, True)
+                row["call_ms"] = time_ms(kern, flush, False)
+                row["plain_call_ms"] = time_ms(plain, flush, False)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    B, cfg, m, x.element_size(), Ll, Cc)
+                row["tc_bound_ms"] = tc_bound_ms(
+                    B, cfg, m, x.element_size(), Ll, Cc)
+            rows.append(row)
+            log("  found_cell {ops:<30} L={L:<2} C={C:<3} B={B:<3} "
+                "{dtype:<8} max_abs_err={max_abs_err:.3g} ok={ok}".format(
+                    **row)
+                + ("  ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                   "bound_ms={bound_ms:.5f} tc_bound_ms={tc_bound_ms:.5f} "
+                   "call_ms={call_ms:.4f} "
+                   "plain_call_ms={plain_call_ms:.4f}".format(**row)
+                   if "ms" in row else ""))
+            if not ok or launched != 1:
+                raise AssertionError(f"found_cell disagrees with its "
+                                     f"plain version: {row}")
     return rows
 
 
@@ -602,10 +662,7 @@ def cuda_vs_cpu(data, exp):
 
 
 def serve_breakdown(data, exp, dtype, iters=20):
-    """Where one request's time goes: the host time to read one batch from
-    disk, the host time of ``FoundNetServer.predict`` on it (upload, forward,
-    logits back), and the device-time span of each top-level layer of the
-    found net (CUDA events in forward hooks), medians over ``iters``."""
+    """Where one request's time goes (``request_breakdown``), MM-IMDB."""
     from bmnas_tpu_torch.data.mmimdb import MMIMDBDataset
     from bmnas_tpu_torch.genotype import load_genotype
     from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
@@ -615,11 +672,21 @@ def serve_breakdown(data, exp, dtype, iters=20):
     server = load_server(os.path.join(exp, "best", "best_model.pt"), model,
                          dtype=dtype, device="cuda")
     dataset = MMIMDBDataset(data, "test", num_workers=4)
-    t0 = time.perf_counter()
-    batches = list(dataset.batches(BATCH, shuffle=False))
-    load_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
     parts = (["imagenet", "textnet"] + [f"reshape_{i}" for i in model.used]
              + ["fusion_net", "central_classifier"])
+    return request_breakdown(server, dataset, BATCH, parts, iters)
+
+
+def request_breakdown(server, dataset, batch, parts, iters):
+    """Where one request's time goes: the host time to read one batch from
+    disk (the mean over the split), the host time of
+    ``FoundNetServer.predict`` on its first batch (upload, forward, logits
+    back) and the device-time span of each of ``parts`` (top-level layers;
+    CUDA events in forward hooks), medians over ``iters`` after 3 warm-up
+    requests."""
+    t0 = time.perf_counter()
+    batches = list(dataset.batches(batch, shuffle=False))
+    load_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
     spans = {n: [] for n in parts}
 
     def event():
@@ -644,8 +711,9 @@ def serve_breakdown(data, exp, dtype, iters=20):
     layer_ms = {n: statistics.median(a.elapsed_time(b) for a, b in s[3:])
                 for n, s in spans.items()}
     request = statistics.median(request_ms[3:])
-    return {"dtype": str(dtype).split(".")[-1], "batch": BATCH,
+    return {"dtype": str(server.dtype).split(".")[-1], "batch": batch,
             "load_ms_per_batch": load_ms, "predict_ms": request,
+            "predict_ms_all": request_ms[3:],
             "layer_device_ms": layer_ms,
             "other_ms": request - sum(layer_ms.values())}
 
@@ -846,9 +914,9 @@ def search_steps_cuda_vs_cpu(devices=("cuda", "cpu")):
             "rtol": 5e-3, "atol": 5e-6, "same_genotype": True}
 
 
-def device_busy_ms(fn, tmp, iters=5):
+def device_busy_ms(fn, tmp, iters=5, top=3):
     """Device busy time of one call of ``fn``, its number of kernel
-    launches and its three longest kernels, from a ``torch.profiler`` trace
+    launches and its ``top`` longest kernels, from a ``torch.profiler`` trace
     of ``iters`` calls: the union of the kernel, memcpy and memset
     intervals, over ``iters``. None when the trace holds no device
     activity."""
@@ -879,9 +947,9 @@ def device_busy_ms(fn, tmp, iters=5):
         if e.get("ph") == "X" and e.get("cat") == "kernel":
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
             launches += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    longest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return (busy / iters / 1e3, launches / iters,
-            [(n[:80], d / iters / 1e3) for n, d in top])
+            [(n[:80], d / iters / 1e3) for n, d in longest])
 
 
 def first_batch(data, split, device):
@@ -1541,6 +1609,233 @@ def attention_memory(device, B=8, Ll=8192):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: NTU serve
+# ---------------------------------------------------------------------------
+
+# the NTU found defaults (cli/common.py::parse_ntu_found_args)
+NTU_CFG = dict(C=NTU_C, L=NTU_L, steps=4, multiplier=2, node_steps=2,
+               node_multiplier=2, num_input_nodes=8, num_keep_edges=2,
+               num_outputs=60, drpt=0.2)
+# one full batch of 96 and a ragged one of 4; clips of 8 frames at 256x256
+NTU_SAMPLES, NTU_BATCH, NTU_HW = 100, 96, 256
+NTU_CPU_SAMPLES = 2  # the CUDA vs CPU batch, at the full width
+
+
+def ntu_genotype():
+    """Four found cells of two chained inner steps (the second step reads
+    the first's output), every inner op among them, inner concat of both
+    steps (multiplier 2, so each cell runs the out-conv); the third and
+    fourth cells read the first and second cells' outputs, and inputs 2
+    (fm4) and 6 (out7) are left out."""
+    from bmnas_tpu_torch.genotype import Genotype, StepGenotype
+    return Genotype(
+        edges=[("skip", 0), ("skip", 4), ("skip", 3), ("skip", 5),
+               ("skip", 8), ("skip", 1), ("skip", 9), ("skip", 7)],
+        concat=[10, 11],
+        steps=[StepGenotype([("skip", 0), ("skip", 1), ("skip", 1),
+                             ("skip", 2)], list(ops), [2, 3])
+               for _, _, ops in NTU_KERNEL_CONFIGS])
+
+
+def seeded_ntu_net(seed):
+    """The NTU genotype's found net at the full width on the CPU:
+    convolutions He-initialised, BatchNorm affines randomized, then the
+    BatchNorm statistics taken from one train-mode pass over 8 random
+    8x256x256 clips: random, so that folding is exercised, and true to
+    the activations, so that those stay O(1) through the 16 bottlenecks
+    (statistics drawn at random compound over the depth, and the taps grow
+    to 1e3 and the reshaped pooled vector to 1e4)."""
+    from bmnas_tpu_torch.models.ntu import FoundSkeletonImageNet
+    torch.manual_seed(seed)
+    model = FoundSkeletonImageNet.from_genotype(ntu_genotype(), device="cpu",
+                                                **NTU_CFG)
+    gen = torch.Generator().manual_seed(seed + 1)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm1d)]
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d)):
+                fan_in = mod.weight[0].numel()
+                mod.weight.normal_(0.0, math.sqrt(2.0 / fan_in),
+                                   generator=gen)
+        for bn in bns:
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(0.0, 0.1, generator=gen)
+            bn.momentum = 1.0  # the running statistics become the batch's
+        model.train()({
+            "image": torch.randint(0, 256, (8, 8, NTU_HW, NTU_HW, 3),
+                                   generator=gen, dtype=torch.uint8),
+            "skeleton": torch.randn(8, 32, 25, 2, 3, generator=gen) * 0.1,
+            "mask": torch.ones(8)})
+        for bn in bns:
+            bn.momentum = 0.1
+    return model.eval()
+
+
+def write_ntu_experiment(root):
+    """A synthetic NTU test split (uint8 .npy clips of 8 frames at 256x256,
+    40-frame skeletons, the test subjects) and a found experiment dir."""
+    from bmnas_tpu_torch.data.ntu import SUBJECTS
+    from bmnas_tpu_torch.data.synthetic import make_ntu_synthetic
+    from bmnas_tpu_torch.genotype import save_genotype
+    from bmnas_tpu_torch.utils.checkpoint import save_model
+    data = os.path.join(root, "ntu_data")
+    subjects = SUBJECTS["test"]
+    make_ntu_synthetic(data, n_videos_per_subject=NTU_SAMPLES // len(
+        subjects), subjects=subjects, num_actions=NTU_CFG["num_outputs"],
+        hw=NTU_HW, frames=8, ske_frames=40, seed=0)
+    best = os.path.join(root, "ntu_exp", "best")
+    os.makedirs(best)
+    save_genotype(ntu_genotype(), os.path.join(best, "best_genotype.pkl"))
+    save_model(os.path.join(best, "best_model.pt"), seeded_ntu_net(0))
+    return data, os.path.join(root, "ntu_exp")
+
+
+def ntu_serve_once(data, exp, bf16):
+    """``main_serve --task ntu`` at the NTU defaults; 4 found-cell launches
+    a batch (one a found cell)."""
+    from bmnas_tpu_torch.cli.serve import main_serve
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    argv = ["--task", "ntu", "--eval_exp_dir", exp, "--datadir", data,
+            "--batchsize", str(NTU_BATCH), "--num_workers", "8"] + (
+                ["--bf16"] if bf16 else [])
+    before = LAUNCHES["found_cell"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_serve(argv)
+    printed = buf.getvalue()
+    sys.stdout.write(printed)
+    launched = LAUNCHES["found_cell"] - before
+    line = json.loads(printed.strip().splitlines()[-1])
+    n_batches = -(-NTU_SAMPLES // NTU_BATCH)
+    checks = {
+        "printed == returned": line == result,
+        "metric": result["metric"] == "accuracy",
+        "samples": result["samples"] == NTU_SAMPLES,
+        "batches": result["batches"] == n_batches,
+        "launches == 4 x batches": launched == 4 * n_batches,
+        "finite logits": result["logits_finite"],
+        "accuracy in [0, 1]": 0.0 <= result["value"] <= 1.0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"NTU serve (bf16={bf16}) failed {checks}: "
+                             f"{result}, launches={launched}")
+    return dict(result, launches=launched)
+
+
+def ntu_server(exp, device, dtype=torch.float32):
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.models.ntu import FoundSkeletonImageNet
+    from bmnas_tpu_torch.serving import load_server
+    geno = load_genotype(os.path.join(exp, "best", "best_genotype.pkl"))
+    model = FoundSkeletonImageNet.from_genotype(geno, device=device,
+                                                **NTU_CFG)
+    return load_server(os.path.join(exp, "best", "best_model.pt"), model,
+                       dtype=dtype, device=device)
+
+
+def ntu_cuda_vs_cpu(data, exp):
+    """The first 2 test samples' logits at the full width: the port on CUDA
+    (through the kernel) against the port on the CPU (plain PyTorch), TF32
+    off on both sides, within phase 5's 1e-3."""
+    from bmnas_tpu_torch.data.ntu import NTUDataset
+    batch = next(iter(NTUDataset(data, "test", num_workers=2).batches(
+        NTU_CPU_SAMPLES, shuffle=False)))
+    out = {dev: ntu_server(exp, dev).predict(batch)
+           for dev in ("cuda", "cpu")}
+    diff = float(np.abs(out["cuda"] - out["cpu"]).max())
+    if not (np.isfinite(out["cuda"]).all() and diff <= 1e-3):
+        raise AssertionError(f"NTU CUDA vs CPU logits differ by {diff}")
+    return {"samples": NTU_CPU_SAMPLES, "max_abs_diff": diff,
+            "logits_abs_max": float(np.abs(out["cpu"]).max()),
+            "tolerance": 1e-3}
+
+
+def ntu_breakdown(data, exp, dtype, tmp, iters=5):
+    """``request_breakdown`` of a request of 96 at the NTU defaults, then a
+    profiler trace of 2 more requests: device busy ms, the idle share of
+    the median ``predict``, kernel launches and the 8 longest kernels."""
+    from bmnas_tpu_torch.data.ntu import NTUDataset
+    server = ntu_server(exp, "cuda", dtype)
+    parts = (["rgbnet", "skenet"]
+             + [f"reshape_{i}" for i in server.model.used]
+             + ["fusion_net", "central_classifier"])
+    dataset = NTUDataset(data, "test", num_workers=8)
+    out = request_breakdown(server, dataset, NTU_BATCH, parts, iters)
+    batch = next(iter(dataset.batches(NTU_BATCH, shuffle=False)))
+    busy, launches, top = device_busy_ms(lambda: server.predict(batch), tmp,
+                                         iters=2, top=8)
+    out.update(device_busy_ms=busy, kernel_launches=launches,
+               top_kernels_ms=top, device_idle_share=None if busy is None
+               else 1 - busy / out["predict_ms"])
+    return out
+
+
+def ntu_conv_flop(batch):
+    """FLOP of the NTU net's convolutions on one batch (2 per multiply-add),
+    counted by forward hooks on a copy on the meta device (no data, no
+    compute): (inflated ResNet-50, HCN)."""
+    from bmnas_tpu_torch.models.ntu import FoundSkeletonImageNet
+    model = FoundSkeletonImageNet.from_genotype(ntu_genotype(), device="meta",
+                                                **NTU_CFG).eval()
+    flop = {"rgbnet": 0, "skenet": 0}
+    for part in flop:
+        for mod in model.get_submodule(part).modules():
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d)):
+                mod.register_forward_hook(
+                    lambda m, a, o, part=part: flop.__setitem__(
+                        part, flop[part] + 2 * o.numel() * m.weight[0].numel()))
+    T, Ts = 8, 32
+    with torch.no_grad():
+        model({"image": torch.zeros(batch, T, NTU_HW, NTU_HW, 3,
+                                    dtype=torch.uint8, device="meta"),
+               "skeleton": torch.zeros(batch, Ts, 25, 2, 3, device="meta"),
+               "mask": torch.ones(batch, device="meta")})
+    return flop
+
+
+def ntu_phase(root):
+    """Phase 10: the NTU found net served at the NTU defaults. Returns the
+    report and the launch counts of the serve runs (the main path)."""
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    t0 = time.perf_counter()
+    data, exp = write_ntu_experiment(root)
+    out = {"write_s": time.perf_counter() - t0}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for convs
+    reset_launches()
+    out["fp32"] = ntu_serve_once(data, exp, bf16=False)
+    out["bf16"] = ntu_serve_once(data, exp, bf16=True)
+    launches = dict(LAUNCHES)
+    torch.backends.cudnn.allow_tf32 = False
+    out["cuda_vs_cpu"] = ntu_cuda_vs_cpu(data, exp)
+    log(f"  cuda vs cpu logits: {out['cuda_vs_cpu']}")
+    torch.backends.cudnn.allow_tf32 = True
+    out["breakdown"] = [ntu_breakdown(data, exp, dt, root)
+                        for dt in (torch.float32, torch.bfloat16)]
+    out["conv_flop_per_batch"] = flop = ntu_conv_flop(NTU_BATCH)
+    for b in out["breakdown"]:
+        b["rgbnet_conv_tflop_per_s"] = (
+            flop["rgbnet"] / b["layer_device_ms"]["rgbnet"] / 1e9)
+        log("  breakdown {dtype}, batch {batch}: load {load_ms_per_batch:.3f}"
+            " ms/batch, predict {predict_ms:.3f} ms (median of {n}), other "
+            "{other_ms:.3f} ms, layers (device) ".format(
+                n=len(b["predict_ms_all"]), **b) + ", ".join(
+                f"{k} {v:.4f}" for k, v in b["layer_device_ms"].items())
+            + "; rgbnet convs {:.3f} TFLOP a batch at {:.1f} TFLOP/s".format(
+                flop["rgbnet"] / 1e12, b["rgbnet_conv_tflop_per_s"]))
+        if b["device_busy_ms"] is None:
+            log("  trace {dtype}: device busy not measured (no device events "
+                "in the profiler trace)".format(**b))
+        else:
+            log("  trace {dtype}: device busy {device_busy_ms:.3f} ms a "
+                "request, idle share {device_idle_share:.3f}, "
+                "{kernel_launches:.0f} kernel launches; top ".format(**b)
+                + ", ".join(f"{n} {d:.3f}" for n, d in b["top_kernels_ms"]))
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1689,6 +1984,13 @@ def main(argv=None):
                 f"rng states equal {v['rng_states_equal']}, ops without a "
                 f"deterministic CUDA kernel "
                 f"{v['ops_without_deterministic_cuda_kernel']}")
+        # found retraining back-propagates through both reshape layers'
+        # pools into the backbones: no op there may add in no fixed order
+        nondet = report["resume"]["found"][
+            "ops_without_deterministic_cuda_kernel"]
+        if nondet:
+            raise AssertionError(f"resume found: ops without a "
+                                 f"deterministic CUDA kernel ran: {nondet}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1704,9 +2006,26 @@ def main(argv=None):
     report["attention_sweep"] = attention_sweep(device)
     report["attention_ablation"] = attention_ablation(device)
 
+    log("[10 NTU serve] NTU found net, C={C} L={L} steps {steps} "
+        "node_steps {node_steps} node_multiplier {node_multiplier}, 8x{hw}x"
+        "{hw} clips and 32-frame skeletons, {n} samples in batches of {b}"
+        .format(hw=NTU_HW, n=NTU_SAMPLES, b=NTU_BATCH, **NTU_CFG))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ntu_")
+    try:
+        report["ntu_serve"], main_path_launches["ntu serve"] = ntu_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  NTU serve: {:.1f} s (writing the data {:.1f} s); found_cell "
+        "launches fp32 {}, bf16 {} over {} batches each".format(
+            report["ntu_serve"]["seconds"], report["ntu_serve"]["write_s"],
+            report["ntu_serve"]["fp32"]["launches"],
+            report["ntu_serve"]["bf16"]["launches"],
+            report["ntu_serve"]["fp32"]["batches"]))
+
     report["main_path_launches"] = main_path_launches
     for path, name in (("serve", "found_cell"), ("found", "found_cell"),
-                       ("search", "node_mixed"), ("attention", "attention")):
+                       ("search", "node_mixed"), ("attention", "attention"),
+                       ("ntu serve", "found_cell")):
         if main_path_launches[path][name] == 0:
             raise AssertionError(f"kernel {name} never launched on its main "
                                  f"path ({path})")
@@ -1715,8 +2034,11 @@ def main(argv=None):
     # fp32; node_mixed: the supernet's call (x is y, softmaxed gammas) at
     # B=8, fp32
     served = [r for r in rows if r["B"] == 8 and r["dtype"] == "float32"
-              and r["node_steps"] == 1 and r["ops"] in ("ScaleDotAttn",
-                                                        "LinearGLU")]
+              and r["C"] == C and r["node_steps"] == 1
+              and r["ops"] in ("ScaleDotAttn", "LinearGLU")]
+    # the NTU genotype's four cells at the serving batch, fp32
+    ntu_cells = [r for r in rows if r["C"] == NTU_C and r["B"] == NTU_BATCH
+                 and r["dtype"] == "float32"]
     mean = lambda k: sum(r[k] for r in served) / len(served)  # noqa: E731
     err = lambda rs, dt: max(r["max_abs_err"] for r in rs  # noqa: E731
                              if r["dtype"] == dt)
@@ -1729,11 +2051,13 @@ def main(argv=None):
         "source": "bmnas_tpu_torch/csrc/found_cell.cu",
         "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:368",
         "launches": (main_path_launches["serve"]["found_cell"]
-                     + main_path_launches["found"]["found_cell"]),
+                     + main_path_launches["found"]["found_cell"]
+                     + main_path_launches["ntu serve"]["found_cell"]),
         "launches_by_path": {
             "serve": main_path_launches["serve"]["found_cell"],
             "found test phase and test-only":
-            main_path_launches["found"]["found_cell"]},
+            main_path_launches["found"]["found_cell"],
+            "ntu serve": main_path_launches["ntu serve"]["found_cell"]},
         "max_abs_err": err(rows, "float32"),
         "max_abs_err_bf16": err(rows, "bfloat16"),
         "ms": mean("ms"),
@@ -1744,6 +2068,9 @@ def main(argv=None):
         "library_ms": None,
         "call_ms": mean("call_ms"),
         "plain_call_ms": mean("plain_call_ms"),
+        "ntu_width_B96": {k: sum(r[k] for r in ntu_cells) / len(ntu_cells)
+                          for k in ("ms", "plain_ms", "bound_ms",
+                                    "tc_bound_ms")},
     }, {
         "name": "node_mixed",
         "route": "cuda",
@@ -1791,7 +2118,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    log(f"[10 result] {report['seconds']:.1f} s"
+    log(f"[11 result] {report['seconds']:.1f} s"
         + (f"; full report in {args.out}" if args.out else ""))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

@@ -39,7 +39,8 @@ def test_port_imports_no_jax_or_reference():
                  "ops.kernels.node_mixed", "ops.kernels.attention",
                  "ops.fusion_ops", "models.supernet", "search.bilevel",
                  "search.loop", "search.scheduler", "utils.experiment",
-                 "visualize"):
+                 "visualize", "models.hcn", "models.inflated_resnet",
+                 "models.ntu", "data.ntu"):
         assert f"bmnas_tpu_torch.{name}" in res["imported"], name
     assert len(res["imported"]) >= 33
     bad = [m for m in res["modules"] if _forbidden(m)]

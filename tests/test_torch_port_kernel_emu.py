@@ -534,6 +534,29 @@ def test_kernel_matches_reference(emu_lib, node_steps, m, ops, dtype):
     _compare(emu_lib, x, y, p, cfg, m)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("ops", [("LinearGLU", "LinearGLU"),
+                                 ("ScaleDotAttn", "ConcatFC"),
+                                 ("ConcatFC", "Sum"),
+                                 ("Sum", "ScaleDotAttn")],
+                         ids=lambda ops: "-".join(ops))
+def test_kernel_ntu_width(emu_lib, ops, dtype):
+    """The NTU serving width, L=8, C=128 (256 threads a block, the 256
+    rows of a GLU weight in K-tiles of 32), with the four cells the NTU
+    serve smoke test
+    serves: two chained steps (the second reads the first's output) and
+    multiplier 2, so the out-conv runs."""
+    B, L, C = 2, 8, 128
+    gen = torch.Generator().manual_seed(12)
+    cfg = tnm.found_cell_steps_cfg(
+        (("skip", 0), ("skip", 1), ("skip", 1), ("skip", 2)), ops)
+    p = _params(gen, 2, 2, L, C, dtype)
+    x = torch.randn(B, L, C, generator=gen).to(dtype)
+    y = torch.randn(B, L, C, generator=gen).to(dtype)
+    _compare(emu_lib, x, y, p, cfg, 2)
+
+
 def test_kernel_two_row_tiles_and_none_edges(emu_lib):
     """L=20 (a full row tile, then a ragged one), C=32 (several K-tiles),
     and 'none' inner edges, which read zeros."""

@@ -181,6 +181,43 @@ def test_reshape_input_layer_mmimdb_vectors_skip_the_pool():
     torch.testing.assert_close(gx, gxp, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("dims", [1, 2], ids=["1d", "2d"])
+def test_adaptive_pool_tie_gradient_matches_jax(dims):
+    """Inputs from {0, 1, 2}, so most bins hold ties, and bins that overlap
+    (7 -> 4, 6 -> 4): the input gradient of a weighted sum of the pool
+    against ``jax.grad`` of the JAX pool, which splits a tie's gradient
+    evenly (``F.adaptive_max_pool*`` sent it all to one element)."""
+    rng = np.random.RandomState(7)
+    x = rng.randint(0, 3, (2, 7, 6, 3)).astype(np.float32)
+    if dims == 1:
+        jpool = lambda a: jlayers.adaptive_max_pool_1d(a, 4, axis=1)  # noqa: E731
+        tpool = lambda a: tlayers.adaptive_max_pool_1d(a, 4, axis=1)  # noqa: E731
+    else:
+        jpool = lambda a: jlayers.adaptive_max_pool_2d(a, (4, 4))  # noqa: E731
+        tpool = lambda a: tlayers.adaptive_max_pool_2d(a, (4, 4))  # noqa: E731
+    w = rng.randn(*np.shape(jpool(jnp.asarray(x)))).astype(np.float32)
+    want = np.asarray(jax.grad(lambda a: (jpool(a) * w).sum())(
+        jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    (got,) = torch.autograd.grad((tpool(xt) * torch.from_numpy(w)).sum(), xt)
+    assert (want != np.round(want)).any()  # some gradient was split
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("layer,shape", [
+    ("ntu", (3, 9, 10)), ("ntu", (3, 9, 4, 5, 10)), ("mmimdb", (3, 7, 5, 10)),
+    ("mmimdb", (3, 10))])
+def test_reshape_layers_have_no_adaptive_pool_backward(layer, shape):
+    """Neither reshape layer leaves an ``AdaptiveMaxPool*Backward`` node in
+    the graph: the CUDA backward of those pools adds by atomics in no fixed
+    order, which ``--resume`` on the card cannot reproduce."""
+    cls = (tlayers.ReshapeInputLayer if layer == "ntu"
+           else tlayers.ReshapeInputLayerMMIMDB)
+    x = torch.from_numpy(_x(*shape)).requires_grad_()
+    names = _grad_fns(cls(10, 6, 4, 0.0).train()(x))
+    assert names and not any("AdaptiveMaxPool" in n for n in names), names
+
+
 def test_reshape_input_layer_mmimdb_needs_square_L():
     with pytest.raises(ValueError, match="perfect square"):
         tlayers.ReshapeInputLayerMMIMDB(10, 6, 8, 0.0)
