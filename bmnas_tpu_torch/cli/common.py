@@ -131,55 +131,6 @@ def add_common_flags(parser: argparse.ArgumentParser, *, datadir_default: str,
                              'above 0 not ported yet)')
 
 
-def parse_ntu_found_args(argv=None) -> argparse.Namespace:
-    """The flags of the JAX package's NTU found CLI
-    (``bmnas_tpu/cli/ntu.py::parse_found_args``) at their defaults: C=128,
-    L=8, steps 4, multiplier 2, node_steps 2, node_multiplier 2, 8 input
-    nodes, 60 classes, batch 96, ``--vid_len 8 32`` frames of
-    ``--vid_dim`` 256. The serve CLI reads the model, data and
-    ``--node_variant`` flags; the backbone checkpoints, ``--modality``,
-    ``--momentum`` and the schedule are the training CLI's."""
-    parser = argparse.ArgumentParser(description='Modality optimization.')
-    add_common_flags(parser, datadir_default='BM-NAS_dataset/NTU/',
-                     batchsize=96, C=128, L=8, num_input_nodes=8,
-                     num_outputs=60, eta_max=3e-4, epochs=50, node_steps=2,
-                     steps=4, node_multiplier=2, drpt=0.2,
-                     weight_decay=3e-4, num_workers=16, Ti=5)
-    parser.add_argument('--j', dest='num_workers', type=int)
-    parser.add_argument('--checkpointdir', type=str, default='checkpoints/ntu')
-    parser.add_argument('--ske_cp', type=str,
-                        default='skeleton_32frames_85.24.checkpoint')
-    parser.add_argument('--rgb_cp', type=str,
-                        default='rgb_8frames_83.91.checkpoint')
-    parser.add_argument('--imagenet_cp', type=str,
-                        default='resnet50_imagenet.pth')
-    parser.add_argument('--modality', type=str, default='both')
-    parser.add_argument('--vid_dim', action='store', default=256, type=int)
-    parser.add_argument('--vid_fr', action='store', default=30, type=int)
-    parser.add_argument('--vid_len', action='store', default=(8, 32),
-                        type=int, nargs='+')
-    parser.add_argument('--remat', action='store_true', default=False,
-                        help='recompute backbone activations in the '
-                             'backward pass (no effect in eval)')
-    parser.add_argument('--device_cache_budget_gb', type=float, default=10.0,
-                        help='(not ported yet) --device_data_cache budget')
-    parser.add_argument('--search_exp_dir', type=str, default=None)
-    parser.add_argument('--fused_kernels', action='store_true',
-                        help='run eval found cells through the found-cell '
-                             'kernel wrapper on the CPU too (on CUDA they '
-                             'always run the kernel)')
-    parser.add_argument('--node_variant', type=str, default='bmnas',
-                        choices=['bmnas', 'darts', 'mfas', 'aoa',
-                                 'two_head_attn'])
-    parser.add_argument('--task_variant', type=str, default='bmnas',
-                        choices=['bmnas', 'simple_concat', 'ensemble_concat',
-                                 'ensemble', 'simple_concat_attn'],
-                        help='whole-net ablation baselines (not ported yet)')
-    parser.add_argument('--eval_exp_dir', type=str, default=None)
-    parser.add_argument('--momentum', type=float, default=0.9)
-    return parser.parse_args(argv)
-
-
 def model_kwargs_from_args(args) -> dict:
     return dict(C=args.C, L=args.L, steps=args.steps,
                 multiplier=args.multiplier, node_steps=args.node_steps,

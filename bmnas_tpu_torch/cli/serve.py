@@ -4,7 +4,7 @@ Port of ``bmnas_tpu/cli/serve.py::main_serve`` for ``--task mmimdb`` and
 ``--task ntu``. It loads a found experiment's genotype and model snapshot
 and serves a dataset split through ``FoundNetServer`` on one device; the
 task's own flags are its found CLI's (``cli/mmimdb.py::parse_found_args``,
-``cli/common.py::parse_ntu_found_args``):
+``cli/ntu.py::parse_found_args``):
 
     python -m bmnas_tpu_torch.cli.serve --task mmimdb|ntu \\
         --eval_exp_dir <exp> --datadir <root> [--bf16] [--fused_kernels] \\
@@ -55,8 +55,8 @@ def _parse_task_args(task: str, rest):
     if task == "mmimdb":
         from bmnas_tpu_torch.cli.mmimdb import parse_found_args
         return parse_found_args(rest)
-    from bmnas_tpu_torch.cli.common import parse_ntu_found_args
-    return parse_ntu_found_args(rest)
+    from bmnas_tpu_torch.cli.ntu import parse_found_args
+    return parse_found_args(rest)
 
 
 def _build_task(task: str, args, genotype, device):

@@ -29,11 +29,19 @@ def adaptive_max_pool_1d(x: torch.Tensor, out_size: int, axis: int
     ``F.adaptive_max_pool1d`` gives the same values, but its CUDA backward
     adds by atomics in no fixed order and sends a tie's whole gradient to
     one element; ``amax`` over a slice has no scatter and splits a tie's
-    gradient evenly, as ``jax.grad`` of the JAX pool does.
+    gradient evenly, as ``jax.grad`` of the JAX pool does. Where the bins
+    are disjoint and equal (``in_size % out_size == 0``) the slices are one
+    ``amax`` over a split axis, with the same values and gradient.
     """
     axis = axis % x.dim()
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    if in_size % out_size == 0:
+        return x.unflatten(axis, (out_size, in_size // out_size)).amax(
+            dim=axis + 1)
     return torch.stack([x.narrow(axis, s, e - s).amax(dim=axis)
-                        for s, e in _adaptive_bins(x.shape[axis], out_size)],
+                        for s, e in _adaptive_bins(in_size, out_size)],
                        dim=axis)
 
 

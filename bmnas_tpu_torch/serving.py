@@ -2,7 +2,8 @@
 
 Port of ``bmnas_tpu/serving.py`` (FoundNetServer, load_server): a found
 task net in eval mode on one device, fp32 or bf16 weights and activations
-(logits returned in fp32), fixed-size batches with a ``mask``, valid rows
+(logits returned in fp32; in bf16 the BatchNorms keep fp32 weights and
+statistics), fixed-size batches with a ``mask``, valid rows
 trimmed on return. Integer inputs (NTU's uint8 clips) are uploaded as
 they are and normalized by the model on the device. Every FoundNodeCell
 folds its BatchNorms once, when the server is built; on CUDA each cell
@@ -35,7 +36,18 @@ class FoundNetServer:
             if isinstance(m, FoundNodeCell) and fused:
                 m._check_hostable()
                 m.fused_eval = True
-        self.model = model.to(device=self.device, dtype=dtype).eval()
+        # eval BatchNorm takes bf16 activations with fp32 weights and
+        # statistics, and then rounds nothing but its output; cast to bf16
+        # they also send it, on CUDA, to a slower elementwise kernel, the
+        # longest of a bf16 NTU request (chip_smoke.py phase 10's trace)
+        bn_state = {} if dtype == torch.float32 else {
+            name: {k: v.clone() for k, v in m.state_dict().items()}
+            for name, m in model.named_modules()
+            if isinstance(m, nn.modules.batchnorm._BatchNorm)}
+        model.to(device=self.device, dtype=dtype)
+        for name, state in bn_state.items():
+            model.get_submodule(name).float().load_state_dict(state)
+        self.model = model.eval()
         for m in self.model.modules():
             if isinstance(m, FoundNodeCell) and m._folded is None and (
                     m.fused_eval or self.device.type == "cuda"):

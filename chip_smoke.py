@@ -13,7 +13,7 @@ line) on any error:
 3. found_cell vs plain: the found-cell kernel against its plain PyTorch
    version on the card, for seven cell configurations at L=16, C=192, B in
    {8, 37, 96}, and for the four cells that phase 10 serves (two chained
-   steps, multiplier 2, so the out-conv runs) at L=8, C=128, B in {4, 8,
+   steps, multiplier 2, so the out-conv runs) at L=8, C=128, B in {2, 8,
    96}, in fp32 (tolerance 1e-4 abs + 1e-4 rel) and bf16 (2e-2 abs
    + 2e-2 rel; both sides round the same fp32 result to bf16 once). Times
    (CUDA events, median, L2 flushed before each launch) at B=8 and B=96:
@@ -104,8 +104,8 @@ line) on any error:
    of the JAX package calls this kernel; this phase is its only path.
 10. NTU serve: a synthetic NTU test split written by the port's
    ``make_ntu_synthetic`` (100 samples of the test subjects: uint8 clips of
-   8 frames at 256x256, 40-frame skeletons; a full batch of 96 and a
-   ragged one of 4) and a found experiment dir (a genotype of four found
+   8 frames at 256x256, 40-frame skeletons; a full batch of 96 and one of
+   4 samples padded to 96) and a found experiment dir (a genotype of four found
    cells of two chained inner steps, every inner op among them, node
    multiplier 2, and a seeded snapshot with He-initialised convolutions
    and randomized BatchNorm statistics), served through
@@ -114,10 +114,14 @@ line) on any error:
    inflated 3D ResNet-50 and HCN) in fp32 and in bf16. The found-cell
    kernel must launch exactly 4 times a batch, the logits must be finite,
    the accuracy line printed. The first 2 samples' logits on CUDA and on
-   the CPU must agree within 1e-3 (TF32 off). Then the breakdown of a
-   request of 96 (median of 5) in fp32 and bf16, as in phase 5, with the
-   FLOP of the backbone's convolutions and a profiler trace of the
-   request (device busy ms, idle share, launches, longest kernels).
+   the CPU must agree within 1e-3 (TF32 off); on CUDA the bf16 server's
+   must lie within 2x (plus 1e-3) the distance from the fp32 logits of
+   those of the fp32 net run on bf16-rounded weights and input (the
+   seeded net amplifies bf16's rounding; ``ntu_bf16_vs_fp32``). Then the
+   breakdown of a request of 96 (median of 5) in fp32 and bf16, as in
+   phase 5, with the FLOP of the backbone's convolutions and a profiler
+   trace of the request (device busy ms, idle share, launches, the
+   longest kernels and the op that launched each).
 11. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -129,6 +133,7 @@ just after it.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import copy
 import glob
@@ -278,7 +283,8 @@ def time_ms(fn, flush, hide_host, iters=30, warmup=3):
 def kernel_phase(device):
     """The MM-IMDB width (``CONFIGS`` at L=16, C=192, B in 8/37/96), then
     the NTU serving width (``NTU_KERNEL_CONFIGS`` at L=8, C=128, B in
-    4/8/96, 4 being the ragged last batch of phase 10)."""
+    2/8/96: 96 is phase 10's serving batch, every batch padded to full,
+    and 2 its CUDA-vs-CPU batch)."""
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
     rows = []
@@ -287,7 +293,7 @@ def kernel_phase(device):
                            (8, 37, 96))
     for node_steps, m, ops in NTU_KERNEL_CONFIGS:
         rows += cell_cases(gen, flush, device, node_steps, m, ops, NTU_L,
-                           NTU_C, (4, 8, 96))
+                           NTU_C, (2, 8, 96))
     return rows
 
 
@@ -918,8 +924,9 @@ def device_busy_ms(fn, tmp, iters=5, top=3):
     """Device busy time of one call of ``fn``, its number of kernel
     launches and its ``top`` longest kernels, from a ``torch.profiler`` trace
     of ``iters`` calls: the union of the kernel, memcpy and memset
-    intervals, over ``iters``. None when the trace holds no device
-    activity."""
+    intervals, over ``iters``. Each of the longest kernels comes as (name,
+    ms a call, the innermost PyTorch op whose host span holds the launch).
+    None when the trace holds no device activity."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -948,8 +955,48 @@ def device_busy_ms(fn, tmp, iters=5, top=3):
             by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
             launches += 1
     longest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    ops = launching_ops(events, {n for n, _ in longest})
     return (busy / iters / 1e3, launches / iters,
-            [(n[:80], d / iters / 1e3) for n, d in longest])
+            [(n[:80], d / iters / 1e3, ops.get(n)) for n, d in longest])
+
+
+def launching_ops(events, names):
+    """For each kernel name in ``names``, the innermost ``cpu_op`` of the
+    trace whose span on the host thread holds the runtime or driver call
+    that launched the kernel (joined by the trace's correlation id); the
+    most frequent one where launches differ."""
+    launch_at = {e["args"]["correlation"]: (e["tid"], e["ts"])
+                 for e in events if e.get("ph") == "X"
+                 and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    by_tid = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "cpu_op":
+            by_tid.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+    for spans in by_tid.values():
+        spans.sort()
+    starts = {tid: [a for a, _, _ in spans] for tid, spans in by_tid.items()}
+    votes = {}
+    for e in events:
+        if not (e.get("ph") == "X" and e.get("cat") == "kernel"
+                and e["name"] in names):
+            continue
+        at = launch_at.get(e.get("args", {}).get("correlation"))
+        if at is None or at[0] not in by_tid:
+            continue
+        tid, ts = at
+        spans = by_tid[tid]
+        # ops nest, so the latest-starting op that still holds ``ts`` is
+        # the innermost
+        op = None
+        for i in range(bisect.bisect_right(starts[tid], ts) - 1, -1, -1):
+            if spans[i][1] >= ts:
+                op = spans[i][2]
+                break
+        count = votes.setdefault(e["name"], {})
+        count[op] = count.get(op, 0) + 1
+    return {n: max(c, key=c.get) for n, c in votes.items()}
 
 
 def first_batch(data, split, device):
@@ -1008,7 +1055,7 @@ def step_line(v) -> str:
     line = f"host ms to sync, median per round {rounds}; device busy "
     if v["device_busy_ms"] is None:
         return line + "not measured (no device events in the profiler trace)"
-    top = ", ".join(f"{n} {d:.3f}" for n, d in v["top_kernels_ms"])
+    top = ", ".join(f"{n} ({op}) {d:.3f}" for n, d, op in v["top_kernels_ms"])
     return line + (
         f"{v['device_busy_ms']:.3f} ms, idle share "
         f"{v['device_idle_share']:.3f}, {v['kernel_launches']:.0f} kernel "
@@ -1612,11 +1659,12 @@ def attention_memory(device, B=8, Ll=8192):
 # phase 10: NTU serve
 # ---------------------------------------------------------------------------
 
-# the NTU found defaults (cli/common.py::parse_ntu_found_args)
+# the NTU found defaults (cli/ntu.py::parse_found_args)
 NTU_CFG = dict(C=NTU_C, L=NTU_L, steps=4, multiplier=2, node_steps=2,
                node_multiplier=2, num_input_nodes=8, num_keep_edges=2,
                num_outputs=60, drpt=0.2)
-# one full batch of 96 and a ragged one of 4; clips of 8 frames at 256x256
+# one full batch of 96 and one of 4 samples padded to 96 (the dataset pads
+# every batch to full); clips of 8 frames at 256x256
 NTU_SAMPLES, NTU_BATCH, NTU_HW = 100, 96, 256
 NTU_CPU_SAMPLES = 2  # the CUDA vs CPU batch, at the full width
 
@@ -1736,7 +1784,8 @@ def ntu_server(exp, device, dtype=torch.float32):
 def ntu_cuda_vs_cpu(data, exp):
     """The first 2 test samples' logits at the full width: the port on CUDA
     (through the kernel) against the port on the CPU (plain PyTorch), TF32
-    off on both sides, within phase 5's 1e-3."""
+    off on both sides, within phase 5's 1e-3; and the CUDA server in bf16
+    against it in fp32 (``ntu_bf16_vs_fp32``)."""
     from bmnas_tpu_torch.data.ntu import NTUDataset
     batch = next(iter(NTUDataset(data, "test", num_workers=2).batches(
         NTU_CPU_SAMPLES, shuffle=False)))
@@ -1747,7 +1796,58 @@ def ntu_cuda_vs_cpu(data, exp):
         raise AssertionError(f"NTU CUDA vs CPU logits differ by {diff}")
     return {"samples": NTU_CPU_SAMPLES, "max_abs_diff": diff,
             "logits_abs_max": float(np.abs(out["cpu"]).max()),
-            "tolerance": 1e-3}
+            "tolerance": 1e-3,
+            "bf16_vs_fp32": ntu_bf16_vs_fp32(batch, exp, out["cuda"])}
+
+
+def ntu_bf16_vs_fp32(batch, exp, ref):
+    """The bf16 CUDA server's logits against the fp32 ones (``ref``).
+
+    The seeded net amplifies small changes: in fp32, its input changed by
+    bf16's unit roundoff alone moves its logits by a large share of their
+    spread. So the bound is measured on the same batch: ``rounded`` runs
+    in fp32 the net that a bf16 server holds (every weight but the
+    BatchNorms', which it keeps in fp32, rounded to bf16) on the input
+    that it sees (the skeletons and the normalized clip rounded to bf16).
+    The bf16 server also rounds its activations, an error of the same
+    order; its logits must lie within 2x the distance of ``rounded``'s
+    from ``ref``, plus 1e-3. The fp32 net on the rounded input alone is
+    reported beside them."""
+    from bmnas_tpu_torch.models.foundnet import FoundNodeCell
+    bf16 = ntu_server(exp, "cuda", torch.bfloat16).predict(batch)
+    server = ntu_server(exp, "cuda")
+    model = server.model
+    hook = model.rgbnet.register_forward_pre_hook(
+        lambda m, args: (args[0].to(torch.bfloat16).float(),))
+    batch16 = dict(batch, skeleton=torch.from_numpy(
+        batch["skeleton"]).to(torch.bfloat16).float().numpy())
+    input_only = server.predict(batch16)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                continue
+            for t in [*m.parameters(recurse=False),
+                      *m.buffers(recurse=False)]:
+                if t.is_floating_point():
+                    t.copy_(t.to(torch.bfloat16).float())
+        for m in model.modules():
+            if isinstance(m, FoundNodeCell):
+                m.fold()
+    rounded = server.predict(batch16)
+    hook.remove()
+    d16 = float(np.abs(bf16 - ref).max())
+    yard = float(np.abs(rounded - ref).max())
+    if not (np.isfinite(bf16).all() and d16 <= 2 * yard + 1e-3):
+        raise AssertionError(f"NTU bf16 vs fp32 CUDA logits differ by {d16}"
+                             f"; the fp32 net of bf16-rounded weights and "
+                             f"input by {yard}")
+    return {"max_abs_diff": d16, "mean_abs_diff": float(
+                np.abs(bf16 - ref).mean()),
+            "rounded_fp32_max_abs_diff": yard,
+            "rounded_fp32_mean_abs_diff": float(np.abs(rounded - ref).mean()),
+            "input_rounded_fp32_max_abs_diff": float(
+                np.abs(input_only - ref).max()),
+            "tolerance": "2 x rounded_fp32_max_abs_diff + 1e-3"}
 
 
 def ntu_breakdown(data, exp, dtype, tmp, iters=5):
@@ -1783,7 +1883,8 @@ def ntu_conv_flop(batch):
             if isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d)):
                 mod.register_forward_hook(
                     lambda m, a, o, part=part: flop.__setitem__(
-                        part, flop[part] + 2 * o.numel() * m.weight[0].numel()))
+                        part,
+                        flop[part] + 2 * o.numel() * m.weight[0].numel()))
     T, Ts = 8, 32
     with torch.no_grad():
         model({"image": torch.zeros(batch, T, NTU_HW, NTU_HW, 3,
@@ -1830,7 +1931,8 @@ def ntu_phase(root):
             log("  trace {dtype}: device busy {device_busy_ms:.3f} ms a "
                 "request, idle share {device_idle_share:.3f}, "
                 "{kernel_launches:.0f} kernel launches; top ".format(**b)
-                + ", ".join(f"{n} {d:.3f}" for n, d in b["top_kernels_ms"]))
+                + ", ".join(f"{n} ({op}) {d:.3f}"
+                            for n, d, op in b["top_kernels_ms"]))
     out["seconds"] = time.perf_counter() - t0
     return out, launches
 

@@ -181,14 +181,17 @@ def test_reshape_input_layer_mmimdb_vectors_skip_the_pool():
     torch.testing.assert_close(gx, gxp, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("dims", [1, 2], ids=["1d", "2d"])
-def test_adaptive_pool_tie_gradient_matches_jax(dims):
+@pytest.mark.parametrize("dims,H,W", [(1, 7, 6), (2, 7, 6), (1, 8, 6),
+                                       (2, 8, 12)],
+                         ids=["1d", "2d", "1d-even", "2d-even"])
+def test_adaptive_pool_tie_gradient_matches_jax(dims, H, W):
     """Inputs from {0, 1, 2}, so most bins hold ties, and bins that overlap
-    (7 -> 4, 6 -> 4): the input gradient of a weighted sum of the pool
-    against ``jax.grad`` of the JAX pool, which splits a tie's gradient
-    evenly (``F.adaptive_max_pool*`` sent it all to one element)."""
+    (7 -> 4, 6 -> 4) or split the axis evenly (8 -> 4, 12 -> 4): the input
+    gradient of a weighted sum of the pool against ``jax.grad`` of the JAX
+    pool, which splits a tie's gradient evenly (``F.adaptive_max_pool*``
+    sent it all to one element)."""
     rng = np.random.RandomState(7)
-    x = rng.randint(0, 3, (2, 7, 6, 3)).astype(np.float32)
+    x = rng.randint(0, 3, (2, H, W, 3)).astype(np.float32)
     if dims == 1:
         jpool = lambda a: jlayers.adaptive_max_pool_1d(a, 4, axis=1)  # noqa: E731
         tpool = lambda a: tlayers.adaptive_max_pool_1d(a, 4, axis=1)  # noqa: E731

@@ -16,13 +16,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from bmnas_tpu.data import ntu as jdata
 from bmnas_tpu.data.synthetic import make_ntu_synthetic as jmake
 from bmnas_tpu.genotype import Genotype, StepGenotype, save_genotype
 from bmnas_tpu.models.ntu import FoundSkeletonImageNet as JNet
 from bmnas_tpu.utils.checkpoint import save_model as jsave
-from bmnas_tpu_torch.cli.common import parse_ntu_found_args
+from bmnas_tpu_torch.cli.ntu import parse_found_args
 from bmnas_tpu_torch.data import ntu as tdata
 from bmnas_tpu_torch.data.synthetic import make_ntu_synthetic as tmake
 from bmnas_tpu_torch.models.ntu import FoundSkeletonImageNet as TNet
@@ -133,13 +134,16 @@ def test_dataset_batches_match(data):
 
 
 def test_found_args_have_the_jax_defaults():
-    """Every flag of the JAX NTU found CLI parses on the port with the same
-    default."""
+    """The flags serving reads parse on the port with the JAX NTU found
+    CLI's defaults."""
     from bmnas_tpu.cli.ntu import parse_found_args as jparse
-    want, got = vars(jparse([])), vars(parse_ntu_found_args([]))
-    missing = sorted(set(want) - set(got))
-    assert not missing, missing
-    assert {k: got[k] for k in want} == want
+    want, got = vars(jparse([])), vars(parse_found_args([]))
+    served = ("C", "L", "steps", "multiplier", "node_steps",
+              "node_multiplier", "num_input_nodes", "num_keep_edges",
+              "num_outputs", "drpt", "batchsize", "datadir", "small_dataset",
+              "num_workers", "vid_len", "vid_dim", "node_variant",
+              "fused_kernels", "task_variant")
+    assert {k: got[k] for k in served} == {k: want[k] for k in served}
     assert (got["C"], got["L"], got["steps"], got["node_steps"],
             got["node_multiplier"], got["batchsize"]) == (128, 8, 4, 2, 2, 96)
 
@@ -188,6 +192,28 @@ def test_server_matches_jax_fused_server(nets):
         assert got.shape == want.shape == (int(b["mask"].sum()), 6)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     assert LAUNCHES["found_cell"] == 0  # the CPU never launches the kernel
+
+
+def test_bf16_server_keeps_batchnorm_in_fp32(nets):
+    """A bf16 server casts the net to bf16 but its BatchNorms, whose
+    weights and statistics stay the snapshot's fp32 values (eval
+    BatchNorm takes bf16 activations with fp32 operands); its logits come
+    back in fp32 and finite."""
+    _, _, sd = nets
+    server = FoundNetServer(TNet.from_genotype(GENO, **CFG), sd,
+                            dtype=torch.bfloat16, fused=True, device="cpu")
+    bns = {n for n, m in server.model.named_modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)}
+    assert len(bns) > 53  # the 3D ResNet-50's, the reshapes', the cells'
+    for key, value in server.model.state_dict().items():
+        if key.rpartition(".")[0] in bns:
+            assert value.dtype == sd[key].dtype
+            torch.testing.assert_close(value, sd[key], rtol=0, atol=0)
+        elif value.is_floating_point():
+            assert value.dtype == torch.bfloat16, key
+    out = server.predict(_batch(4, valid=3))
+    assert out.dtype == np.float32 and out.shape == (3, 6)
+    assert np.isfinite(out).all()
 
 
 def test_serve_cli_ntu_matches_jax_cli(nets, data, tmp_path, capsys):
