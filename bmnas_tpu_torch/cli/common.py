@@ -36,9 +36,10 @@ NOT_PORTED = {
                         "Queue 1 item 6, data-path infrastructure"),
     "--parallel": (lambda a: a.parallel,
                    "Queue 1 item 7, multi-device"),
-    "--task_variant": (lambda a: getattr(a, "task_variant", "bmnas")
-                       != "bmnas", "Queue 1 item 4, the NTU search and "
-                       "found CLI"),
+    # the NTU CLIs' parser (cli/ntu.py)
+    "--device_cache_budget_gb": (
+        lambda a: getattr(a, "device_cache_budget_gb", 10.0) != 10.0,
+        "Queue 1 item 6, data-path infrastructure"),
     # the serve CLI's top parser (cli/serve.py)
     "--export": (lambda a: getattr(a, "export", None) is not None,
                  "Queue 1 item 10, torch.export"),

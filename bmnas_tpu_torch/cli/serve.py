@@ -135,6 +135,12 @@ def main_serve(argv=None):
 
     from bmnas_tpu_torch.cli.common import fail_fast_checks
     args = _parse_task_args(args0.task, rest)
+    if getattr(args, "task_variant", "bmnas") != "bmnas":
+        # the JAX serve CLI ignores the flag and builds the found net, into
+        # which an ablation net's snapshot does not load
+        raise SystemExit("--task_variant: serving builds the found net of "
+                         "the genotype, as the JAX serve CLI does; an "
+                         "ablation net's snapshot does not load into it")
     fail_fast_checks(args)
 
     from bmnas_tpu_torch.genotype import load_genotype

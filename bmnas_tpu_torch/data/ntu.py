@@ -1,18 +1,22 @@
 """NTU RGB+D dataset: video + skeleton -> static-shape host batches.
 
 Port of the streaming path of ``bmnas_tpu/data/ntu.py`` (SUBJECTS,
-load_video, get_3d_skeleton, _linear_interp_T, center_crop, normalize_len,
-normalize_sample, NTUDataset). Subject-ID splits are read from filename
-characters [9:12] and the label from [17:20] - 1. Batches carry the clip
-``image`` (B, vid_len[0], H, W, 3), uint8 for uint8 sources (the model
-normalizes it on the device), the ``skeleton`` (B, vid_len[1], 25, 2, 3)
-fp32 channels-last centred on joint 2 of person 0, an int32 ``label`` and a
-``mask`` of valid rows; every batch has the full batch size, the last one
-zero-padded.
+load_video, get_3d_skeleton, _linear_interp_T, aug_crop_select, aug_crop,
+center_crop, normalize_len, normalize_sample, NTUDataset). Subject-ID
+splits are read from filename characters [9:12] and the label from [17:20]
+- 1. Batches carry the clip ``image`` (B, vid_len[0], H, W, 3), uint8 for
+uint8 sources (the model normalizes it on the device), the ``skeleton``
+(B, vid_len[1], 25, 2, 3) fp32 channels-last centred on joint 2 of person
+0, an int32 ``label`` and a ``mask`` of valid rows; every batch has the
+full batch size, the last one zero-padded.
 
-Skeletons go through the Python parser only (a native parser comes with
-the port's data-path work). The training-side pieces (the random temporal
-crop, the frame pool) come with the NTU training slice.
+With ``train_transform`` every sample gets the random temporal crop
+(``aug_crop``) from its own seed, ``seed * 7919 + idx`` of the epoch's
+seed, so the train batches are the JAX package's byte for byte.
+
+Skeletons go through the Python parser only (a native parser, the frame
+pool and ``hybrid_batches`` come with the port's data-path work, ROADMAP.md
+Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -103,6 +107,42 @@ def _linear_interp_T(data: np.ndarray, out_len: int) -> np.ndarray:
             + data[:, hi] * w[None, :, None, None])
 
 
+def aug_crop_select(n_rgb: int, ske: np.ndarray, rng: np.random.RandomState,
+                    p_interval: float = 0.5) -> Tuple[np.ndarray, np.ndarray]:
+    """The random temporal crop, its video half as frame indices: returns
+    the indices of the ``n_rgb`` clip frames the crop keeps, and the
+    cropped skeleton ``(3, T', V, M)``.
+
+    The rng draws in the JAX package's order: the video ratio first, then
+    the skeleton's share ``p``, then its start ``bias``. The skeleton keeps
+    ``min(max(floor(T * p), 64), T)`` frames."""
+    ratio = 1.0 - p_interval * rng.rand()
+    if n_rgb > 0:
+        begin = (n_rgb - int(n_rgb * ratio)) // 2
+        rgb_idx = np.arange(begin, n_rgb - begin)
+    else:
+        rgb_idx = np.arange(0)
+    if ske.ndim > 1:
+        valid = ske.shape[1]
+        p = float(rng.rand(1)[0]) * (1.0 - p_interval) + p_interval
+        cropped = int(np.minimum(np.maximum(int(np.floor(valid * p)), 64),
+                                 valid))
+        bias = rng.randint(0, valid - cropped + 1)
+        ske = ske[:, bias:bias + cropped]
+    return rgb_idx, ske
+
+
+def aug_crop(rgb: np.ndarray, ske: np.ndarray, rng: np.random.RandomState,
+             p_interval: float = 0.5) -> Tuple[np.ndarray, np.ndarray]:
+    """Random temporal crop of a clip and its skeleton
+    (``aug_crop_select`` applied to the clip)."""
+    n_rgb = len(rgb) if rgb.ndim > 1 else 0
+    rgb_idx, ske = aug_crop_select(n_rgb, ske, rng, p_interval)
+    if rgb.ndim > 1:
+        rgb = rgb[rgb_idx]
+    return rgb, ske
+
+
 def center_crop(rgb: np.ndarray, ske: np.ndarray,
                 p_interval: float = 0.9) -> Tuple[np.ndarray, np.ndarray]:
     """Keep the middle ``p_interval`` of the skeleton and clip frames."""
@@ -153,12 +193,15 @@ def normalize_sample(rgb: np.ndarray, ske: np.ndarray,
 class NTUDataset:
     """File-list dataset over the NTU layout
     (``nturgb+d_rgb_{dim}x{dim}_{fr}/*_rgb.{avi,npy}`` and
-    ``nturgb+d_skeletons/*.skeleton``), evaluation transforms only."""
+    ``nturgb+d_skeletons/*.skeleton``); ``train_transform`` adds the random
+    temporal crop before the resample."""
 
     def __init__(self, root_dir: str, stage: str, small_dataset: bool = False,
                  vid_len: Tuple[int, int] = (8, 32), vid_dim: int = 256,
-                 vid_fr: int = 30, num_workers: int = 8):
+                 vid_fr: int = 30, num_workers: int = 8,
+                 train_transform: bool = False):
         subjects = SUBJECTS[stage]
+        self.train_transform = train_transform
         basename_rgb = os.path.join(
             root_dir, "nturgb+d_rgb_{0}x{0}_{1}".format(vid_dim, vid_fr))
         basename_ske = os.path.join(root_dir, "nturgb+d_skeletons")
@@ -195,10 +238,14 @@ class NTUDataset:
     def __len__(self) -> int:
         return len(self.labels)
 
-    def load_sample(self, idx: int) -> Dict[str, np.ndarray]:
+    def load_sample(self, idx: int, seed: int) -> Dict[str, np.ndarray]:
+        """One sample; ``seed`` drives its random crop (train transform)."""
+        rng = np.random.RandomState(seed % (2**32))
         rgb = load_video(self.rgb_list[idx])
         ske = get_3d_skeleton(self.ske_list[idx])
         rgb, ske = normalize_sample(rgb, ske, image_on_host=False)
+        if self.train_transform:
+            rgb, ske = aug_crop(rgb, ske, rng)
         rgb, ske = normalize_len(rgb, ske, self.vid_len)
         # channels-last skeleton: (3, T, V, M) -> (T, V, M, 3)
         return {"image": rgb, "skeleton": np.transpose(ske, (1, 2, 3, 0)),
@@ -206,14 +253,18 @@ class NTUDataset:
 
     def batches(self, batch_size: int, shuffle: bool, seed: int = 0,
                 pad_to_full: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-        """Host batches with a ``mask`` validity vector."""
+        """Host batches with a ``mask`` validity vector. Sample ``i`` is
+        loaded with the seed ``seed * 7919 + i``."""
+        seed = seed % (2**32)
         order = np.arange(len(self))
         if shuffle:
-            np.random.RandomState(seed % (2**32)).shuffle(order)
+            np.random.RandomState(seed).shuffle(order)
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             for start in range(0, len(self), batch_size):
-                samples = list(pool.map(self.load_sample,
-                                        order[start:start + batch_size]))
+                idxs = order[start:start + batch_size]
+                samples = list(pool.map(self.load_sample, idxs,
+                                        [int(seed * 7919 + i)
+                                         for i in idxs]))
                 # a split that mixes uint8 and float clips: one batch has
                 # one dtype, so the uint8 ones are normalized here, by the
                 # same arithmetic as the device

@@ -11,16 +11,25 @@ channels-first on cuDNN (the frames folded into the batch for the stem).
 The taps are permuted views, so a tap nobody reads costs nothing. They
 come back in the parameters' dtype: fp32 unless the whole net was cast to
 bf16 for serving.
+
+``remat=True`` runs each Bottleneck3D under ``torch.utils.checkpoint``
+when it builds a backward: only the blocks' inputs are kept, and each block
+is run again in the backward. The rerun leaves the BatchNorm running
+statistics alone (``ops.layers.recomputing``), so they move once a step,
+as without remat and as in the JAX package's ``nn.remat``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bmnas_tpu_torch.ops.layers import ChannelsFirstBatchNorm
+from torch.utils.checkpoint import checkpoint
+
+from bmnas_tpu_torch.ops.layers import ChannelsFirstBatchNorm, recomputing
 
 
 class Bottleneck3D(nn.Module):
@@ -29,8 +38,10 @@ class Bottleneck3D(nn.Module):
     shape changes. Channels-first ``(B, C, T, H, W)``."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, device=None, dtype=None):
+                 downsample: bool = False, remat: bool = False, device=None,
+                 dtype=None):
         super().__init__()
+        self.remat = remat
         kw = dict(bias=False, device=device, dtype=dtype)
         bn = dict(device=device, dtype=dtype)
         self.conv1 = nn.Conv3d(inplanes, planes, 1, **kw)
@@ -47,6 +58,14 @@ class Bottleneck3D(nn.Module):
             self.downsample_bn = ChannelsFirstBatchNorm(planes * 4, **bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._block(x)
+        # the forward runs as it is, the backward's rerun under recomputing()
+        return checkpoint(self._block, x, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              recomputing()))
+
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
@@ -58,11 +77,12 @@ class Bottleneck3D(nn.Module):
 class InflatedResNet50(nn.Module):
     """Stem (2-D, per frame) + ``layers`` stages of Bottleneck3D; returns
     the four stage taps ``(B, T, H, W, C)``: 256, 512, 1024 and 2048
-    channels at the default widths."""
+    channels at the default widths. ``remat`` reruns each block in the
+    backward instead of keeping its activations."""
 
     def __init__(self, layers: Tuple[int, ...] = (3, 4, 6, 3),
                  channels: Tuple[int, ...] = (64, 128, 256, 512),
-                 device=None, dtype=None):
+                 remat: bool = False, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
@@ -79,7 +99,7 @@ class InflatedResNet50(nn.Module):
                 self.add_module(name, Bottleneck3D(
                     inplanes, planes, s,
                     downsample=b == 0 and (s != 1 or inplanes != planes * 4),
-                    **kw))
+                    remat=remat, **kw))
                 inplanes = planes * 4
                 names.append(name)
             self.stages.append(names)

@@ -7,8 +7,10 @@ flax scope names (``Dense_0``, ``BatchNorm_0``) so that
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import List, Tuple
+import threading
+from typing import Iterator, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -86,6 +88,24 @@ class LayerNorm2D(nn.Module):
         return layer_norm_2d(x, self.weight, self.bias, self.eps)
 
 
+_RECOMPUTING = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """Marks a forward that recomputes activations for a backward
+    (``torch.utils.checkpoint``): train-mode BatchNorms inside it normalize
+    with the batch statistics as before, but leave their running
+    statistics alone, which the first forward already moved (flax's
+    ``nn.remat`` keeps only the forward's update)."""
+    prev = getattr(_RECOMPUTING, "on", False)
+    _RECOMPUTING.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTING.on = prev
+
+
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over the last (channel) axis with the JAX package's
     semantics (flax ``nn.BatchNorm(axis=-1, momentum=0.9)``, eps 1e-5).
@@ -110,6 +130,8 @@ class BatchNorm(nn.BatchNorm1d):
                                 self.weight, self.bias, False, 0.0, self.eps)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                            self.eps)
+        if getattr(_RECOMPUTING, "on", False):
+            return out
         with torch.no_grad():
             axes = [d for d in range(x.dim()) if d != 1]
             var, mean = torch.var_mean(x.float(), dim=axes, correction=0)

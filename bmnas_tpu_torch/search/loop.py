@@ -6,19 +6,23 @@ Port of the streaming path of ``bmnas_tpu/search/loop.py::run_training``:
   every train batch (the scheduler steps once per batch), an arch step on
   every dev batch. Best-dev tracking: ``<exp>/best/best_model.pt``
   (state_dict plus the arch tensors) and ``<exp>/best/best_genotype.pkl``.
-* ``status='eval'`` (found retraining, MM-IMDB): phases train -> dev ->
-  test. The dev phase trains weights too (the reference's found loop), so
-  the scheduler steps on dev batches as well; test runs the eval step.
-  Best-test tracking: ``best/best_test_model.pt`` and
-  ``best/best_test_genotype.pkl`` when the test F1 is strictly better.
+* ``status='eval'`` (found retraining): phases train -> dev -> test for
+  MM-IMDB, train -> test for the video tasks. MM-IMDB's dev phase trains
+  weights too (the reference's found loop), so the scheduler steps on dev
+  batches as well; test runs the eval step. Best-test tracking:
+  ``best/best_test_model.pt`` and ``best/best_test_genotype.pkl``.
+* best tracking: MM-IMDB keeps a new best when it is strictly better, the
+  video tasks also on a tie (``>=``), as the reference's loops do;
+* ``metric='f1'`` (MM-IMDB, from the multilabel counts) or ``'acc'``
+  (``correct / dataset_size``);
 * the NaN-loss escape and the NaN-metric one-extra-epoch failsafe;
 * the genotype plot of every epoch at ``<exp>/architectures/epoch_N``;
 * the full-resume checkpoint ``<exp>/checkpoint.pt`` after every epoch
   (``utils/checkpoint.save_state``), and ``resume_info`` from
   ``cli/common.apply_resume`` to continue after the checkpointed epoch;
-* the reference's log lines ('{phase} Loss: ..., {f1} F1: ...',
-  'Fusion Model Params: N', 'Current best dev/test ...') and a
-  ``metrics.jsonl`` row per phase.
+* the reference's log lines ('{phase} Loss: ..., {f1} F1: ...' or
+  '{phase} Loss: ... Acc: ...', 'Fusion Model Params: N', 'Current best
+  dev/test ...') and a ``metrics.jsonl`` row per phase.
 
 Metric counts stay on the device and cross to the host once a phase. The
 JAX loop's device-cache, frame-pool, ``--unrolled`` and
@@ -47,10 +51,13 @@ def _accumulate(total, counts):
     return {k: total[k] + counts[k] for k in total}
 
 
-def _finalize_metric(counts: Dict, f1_type: str, dataset_size: int):
+def _finalize_metric(counts: Dict, metric: str, f1_type: str,
+                     dataset_size: int):
     host = {k: np.asarray(v.detach().cpu()) for k, v in counts.items()}
     loss = float(host["loss_sum"]) / dataset_size
-    return loss, f1_from_counts(host, average=f1_type, zero_division=1.0)
+    if metric == "f1":
+        return loss, f1_from_counts(host, average=f1_type, zero_division=1.0)
+    return loss, float(host["correct"]) / dataset_size
 
 
 def _fusion_part(name: str) -> bool:
@@ -69,14 +76,15 @@ def run_training(
     dataset_sizes: Dict[str, int],
     num_epochs: int,
     f1_type: str,
+    metric: str = "f1",                # 'f1' | 'acc'
     args,
     logger,
     plotter,
     genotype_fn: Callable[[TrainState], Genotype],
     resume_info: Optional[Dict] = None,  # from cli.common.apply_resume
 ):
-    """Returns (best_metric, best_genotype, state): the best dev F1 in
-    search mode, the best test F1 and its genotype in eval mode."""
+    """Returns (best_metric, best_genotype, state): the best dev metric in
+    search mode, the best test metric and its genotype in eval mode."""
     best_metric, best_genotype, best_epoch = 0.0, None, 0
     best_test_metric, best_test_genotype, best_test_epoch = 0.0, None, 0
     start_epoch = 0
@@ -88,8 +96,16 @@ def run_training(
         best_test_epoch = resume_info["best_test_epoch"]
         best_genotype = resume_info["best_genotype"]
         best_test_genotype = resume_info["best_test_genotype"]
-    phases = ("train", "dev") if status == "search" else (
-        "train", "dev", "test")
+    if status == "search":
+        phases = ("train", "dev")
+    elif task == "mmimdb":
+        phases = ("train", "dev", "test")
+    else:
+        phases = ("train", "test")
+
+    def better(value, best_so_far):
+        return (value > best_so_far if task == "mmimdb"
+                else value >= best_so_far)
     best = os.path.join(args.save, "best")
 
     failsafe = True
@@ -113,16 +129,21 @@ def run_training(
                         counts = fns.eval_step(state, batch)
                     counts_total = _accumulate(counts_total, counts)
                 epoch_loss, epoch_metric = _finalize_metric(
-                    counts_total, f1_type, dataset_sizes[phase])
+                    counts_total, metric, f1_type, dataset_sizes[phase])
                 # chip_smoke.py's PhaseLaunches keys on '<phase> Loss:'.
-                logger.info("{} Loss: {:.4f}, {} F1: {:.4f}".format(
-                    phase, epoch_loss, f1_type, epoch_metric))
+                if metric == "f1":
+                    logger.info("{} Loss: {:.4f}, {} F1: {:.4f}".format(
+                        phase, epoch_loss, f1_type, epoch_metric))
+                else:
+                    logger.info("{} Loss: {:.4f} Acc: {:.4f}".format(
+                        phase, epoch_loss, epoch_metric))
                 with open(os.path.join(args.save, "metrics.jsonl"),
                           "a") as mf:
                     mf.write(json.dumps({
                         "epoch": epoch, "phase": phase, "loss": epoch_loss,
                         "metric": epoch_metric,
-                        "metric_name": "%s_f1" % f1_type}) + "\n")
+                        "metric_name": ("%s_f1" % f1_type if metric == "f1"
+                                        else "acc")}) + "\n")
 
                 num_params = sum(
                     count_parameters(m)
@@ -131,39 +152,52 @@ def run_training(
                 logger.info("Fusion Model Params: {}".format(num_params))
 
                 genotype = genotype_fn(state)
-                logger.info(str(genotype))
+                if genotype is not None:  # the NTU ablation nets have none
+                    logger.info(str(genotype))
 
                 if phase == "train" and math.isnan(epoch_loss):
                     logger.info("Nan loss during training, escaping")
                     return best_metric, best_genotype, state
 
-                if arch_steps and epoch_metric > best_metric:
+                if arch_steps and better(epoch_metric, best_metric):
                     best_metric = epoch_metric
                     best_genotype = copy.deepcopy(genotype)
                     best_epoch = epoch
                     ckpt.save_model(os.path.join(best, "best_model.pt"),
                                     state.model, state.arch)
-                    save_genotype(best_genotype, os.path.join(
-                        best, "best_genotype.pkl"))
+                    if best_genotype is not None:
+                        save_genotype(best_genotype, os.path.join(
+                            best, "best_genotype.pkl"))
 
-                if phase == "test" and epoch_metric > best_test_metric:
+                if phase == "test" and better(epoch_metric,
+                                              best_test_metric):
                     best_test_metric = epoch_metric
                     best_test_genotype = copy.deepcopy(genotype)
                     best_test_epoch = epoch
                     ckpt.save_model(os.path.join(best, "best_test_model.pt"),
                                     state.model, state.arch)
-                    save_genotype(best_test_genotype, os.path.join(
-                        best, "best_test_genotype.pkl"))
+                    if best_test_genotype is not None:
+                        save_genotype(best_test_genotype, os.path.join(
+                            best, "best_test_genotype.pkl"))
 
-            plotter.plot(genotype,
-                         os.path.join(args.save, "architectures",
-                                      "epoch_{}".format(epoch)),
-                         task=task)
+            if genotype is not None:
+                plotter.plot(genotype,
+                             os.path.join(args.save, "architectures",
+                                          "epoch_{}".format(epoch)),
+                             task=task)
 
-            logger.info("Current best dev {} F1: {}, at training epoch: {}"
-                        .format(f1_type, best_metric, best_epoch))
-            logger.info("Current best test {} F1: {}, at training epoch: {}"
-                        .format(f1_type, best_test_metric, best_test_epoch))
+            if metric == "f1":
+                logger.info("Current best dev {} F1: {}, at training epoch: "
+                            "{}".format(f1_type, best_metric, best_epoch))
+                logger.info("Current best test {} F1: {}, at training epoch: "
+                            "{}".format(f1_type, best_test_metric,
+                                        best_test_epoch))
+            else:
+                logger.info("Current best dev accuracy: {}, at training "
+                            "epoch: {}".format(best_metric, best_epoch))
+                logger.info("Current best test accuracy: {}, at training "
+                            "epoch: {}".format(best_test_metric,
+                                               best_test_epoch))
 
             ckpt.save_state(
                 os.path.join(args.save, "checkpoint.pt"), state,

@@ -1,9 +1,9 @@
-"""Multilabel F1 from accumulated per-class counts.
+"""Multilabel F1 from accumulated per-class counts, and accuracy.
 
-Port of ``bmnas_tpu/utils/metrics.py`` (multilabel_counts, f1_from_counts):
-counts are summed per batch (on the device that holds the predictions) and
-finalised on the host with sklearn's formulas, ``zero_division=1`` by
-default as in the reference.
+Port of ``bmnas_tpu/utils/metrics.py`` (multilabel_counts, f1_from_counts,
+accuracy_counts, topk_accuracy, AvgrageMeter): counts are summed per batch
+(on the device that holds the predictions) and finalised on the host with
+sklearn's formulas, ``zero_division=1`` by default as in the reference.
 """
 from __future__ import annotations
 
@@ -58,6 +58,45 @@ def f1_from_counts(counts: Dict[str, object], average: str = "weighted",
         return float(as_np(counts["samples_f1_sum"])) / max(
             float(as_np(counts["count"])), 1.0)
     raise ValueError(f"unknown average {average!r}")
+
+
+def accuracy_counts(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Correct argmax predictions against integer labels, and the number
+    of valid rows, of one batch; ``mask`` (B,) marks the valid rows."""
+    if mask is None:
+        mask = torch.ones(logits.shape[0], device=logits.device)
+    mask = mask.float()
+    hit = (logits.argmax(dim=-1) == labels.long()).float()
+    return {"correct": (hit * mask).sum(), "count": mask.sum()}
+
+
+def topk_accuracy(logits, labels, topk=(1,)) -> list:
+    """Top-k accuracies in percent, one per k (numpy or tensors)."""
+    as_np = lambda v: np.asarray(  # noqa: E731
+        v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+    logits, labels = as_np(logits), as_np(labels)
+    order = np.argsort(-logits, axis=-1)
+    return [100.0 * (order[:, :k] == labels[:, None]).any(axis=1).mean()
+            for k in topk]
+
+
+class AvgrageMeter:
+    """Running average (the reference's spelling)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.avg = 0.0
+        self.sum = 0.0
+        self.cnt = 0
+
+    def update(self, val, n=1):
+        self.sum += val * n
+        self.cnt += n
+        self.avg = self.sum / self.cnt
 
 
 def count_parameters(module: torch.nn.Module) -> int:

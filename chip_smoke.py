@@ -23,12 +23,13 @@ line) on any error:
    3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic type)
    and its tensor-core bound (the FLOP at the dense TF32 or bf16 rate).
 4. node_mixed vs plain: the supernet's mixed-op kernel against its plain
-   version at L=16, C=192, B in {5, 8, 37, 96}, fp32 and bf16 (the same
-   tolerances), with softmaxed random branch weights and each of the four
-   one-hot ones, for x and y two tensors and one tensor. Times as in
-   phase 3 at B=8 and B=96 for the supernet's case (x is y, softmaxed
-   weights), beside the bound and a second bound at the tensor cores'
-   rate, with the launch geometry the launcher picked. Then, at B=37 and
+   version at L=16, C=192, B in {5, 8, 37, 96}, and at the NTU search
+   width, L=8, C=128, B=96, fp32 and bf16 (the same tolerances), with
+   softmaxed random branch weights and each of the four one-hot ones, for
+   x and y two tensors and one tensor. Times as in phase 3 at B=8 and
+   B=96 for the supernet's case (x is y, softmaxed weights), beside the
+   bound and a second bound at the tensor cores' rate, with the launch
+   geometry the launcher picked. Then, at B=37 and
    B=96, one sample a block against four samples a block (the columns a
    block as the launcher picks them for each), each checked and timed.
 5. serve: a synthetic MM-IMDB test split (36 samples of 160x256 images: four
@@ -122,13 +123,50 @@ line) on any error:
    phase 5, with the FLOP of the backbone's convolutions and a profiler
    trace of the request (device busy ms, idle share, launches, the
    longest kernels and the op that launched each).
-11. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
+11. NTU search and found retraining: synthetic NTU splits written by
+   ``make_ntu_synthetic`` (60 uint8 clips of 16x256x256 and 40-frame
+   skeletons for each of subjects 1 and 8 (train_exp), 2 and 5 (dev), 3
+   and 6 (test): every split a full batch of 96 and a ragged one). One
+   epoch of the NTU search ``bmnas_tpu_torch.cli.ntu.main_search`` at the
+   search defaults (C=128, L=8, steps 2, node_steps 2, node_multiplier 2,
+   8 inputs, 60 classes, batch 96, the full inflated 3D ResNet-50 and
+   HCN). Checks: ``log.txt`` (``Acc:`` lines, the best dev accuracy),
+   ``metrics.jsonl`` (train and dev rows, ``acc``, finite),
+   ``checkpoint.pt``, ``best/best_genotype.pkl`` with 2 inner steps a
+   cell; the mixed-op kernel launched no time in the loop and exactly
+   steps x node_steps = 4 times in the supernet's eval step on a dev batch
+   of 96. Then one epoch of found retraining ``main_found
+   --search_exp_dir --remat`` at the found defaults (train_val, test) on
+   the search's genotype, and one on phase 10's four-cell genotype, which
+   reads video inputs (a searched genotype may read skeleton inputs only,
+   and then no gradient reaches the 3D ResNet): train and test rows, the
+   found-cell kernel launched 0 times in train and exactly once a found
+   cell and test batch in test; on the second's eval dir test-only (the
+   same count) and ``main_serve --task ntu``, each printing an accuracy in
+   [0, 1]. CUDA against the CPU (2
+   samples at the full width, 64x64 clips, dropout off, TF32 off, from the
+   same seeded weights): a search weight and arch step, then the
+   supernet's eval logits; a found weight step, then its eval logits;
+   each within 1e-3, the CUDA side through the kernels. ``--remat`` on the
+   card: a found weight step at B=8 (8x256x256) with and without it from
+   the same snapshot, batch and dropout masks, deterministic algorithms:
+   parameters and BatchNorm statistics within 1e-5, the first bottleneck
+   run twice with remat (the backward's rerun) and once without; the peak
+   memory of
+   each and the ops that ran without a deterministic CUDA kernel
+   (reported, not gated). Then at B=96: the search's weight, arch and eval
+   step and found retraining's weight step (``--remat``) and eval step
+   (host ms in three rounds, device busy ms, idle share, launches, the
+   longest kernels and the op that launched each), the peak memory of the
+   found weight step, and the same step without remat (expected to run
+   out of memory; reported).
+12. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every kernel must launch on its path (found_cell: serving, the found test
-phase, test-only and NTU serving; node_mixed: the search's eval step;
-attention: phase 9): the counts are set to 0 just before each path and read
-just after it.
+phase, test-only, NTU serving and the NTU found test phase and test-only;
+node_mixed: the MM-IMDB and NTU search eval steps; attention: phase 9): the
+counts are set to 0 just before each path and read just after it.
 """
 from __future__ import annotations
 
@@ -364,7 +402,7 @@ def cell_cases(gen, flush, device, node_steps, m, ops, Ll, Cc, batches):
 MIXED_GAMMAS = ("softmax", "sum", "attn", "glu", "fc")
 
 
-def mixed_params(gen, dtype, device):
+def mixed_params(gen, dtype, device, L=L, C=C):
     from bmnas_tpu_torch.ops.kernels.node_mixed import NodeMixedParams
 
     def r(*shape, k=1.0):
@@ -376,7 +414,7 @@ def mixed_params(gen, dtype, device):
         cfc_kernel=r(2 * C, C, k=w), cfc_bias=r(C, k=0.1))
 
 
-def mixed_work(B, itemsize, same):
+def mixed_work(B, itemsize, same, L=L, C=C):
     """(bytes, FLOP) of one mixed-op call: x (and y unless it is x), out,
     the LayerNorm affine and both dense layers once, the four fp32 branch
     weights; GEMMs at 2 FLOP per multiply-add, elementwise work at one FLOP
@@ -392,19 +430,19 @@ def mixed_work(B, itemsize, same):
     return nbytes, flops
 
 
-def mixed_bound_ms(B, itemsize, same):
-    nbytes, flops = mixed_work(B, itemsize, same)
+def mixed_bound_ms(B, itemsize, same, L=L, C=C):
+    nbytes, flops = mixed_work(B, itemsize, same, L, C)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def mixed_tc_bound_ms(B, itemsize, same):
+def mixed_tc_bound_ms(B, itemsize, same, L=L, C=C):
     """A second bound beside ``mixed_bound_ms``: the same bytes and FLOP,
     the FLOP at the tensor cores' dense rate for the storage type (TF32
     for fp32, bf16 for bf16). The kernel runs 3xTF32, three TF32 products
     for each fp32 one, so for fp32 this bound is not reachable."""
-    nbytes, flops = mixed_work(B, itemsize, same)
+    nbytes, flops = mixed_work(B, itemsize, same, L, C)
     rate = TF32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
     return max(nbytes / HBM_BYTES_PER_S, flops / rate) * 1e3
 
@@ -420,20 +458,38 @@ MIXED_PAIRS = [(B, label, S) for B in (37, 96)
 
 
 def mixed_phase(device):
-    from bmnas_tpu_torch.ops.kernels import LAUNCHES, _build
+    """The MM-IMDB width (L=16, C=192, ``MIXED_BATCHES``), then the NTU
+    search width (L=8, C=128) at its batch of 96, then
+    ``mixed_pairs``."""
+    from bmnas_tpu_torch.ops.kernels import _build
+    from bmnas_tpu_torch.ops.kernels.node_mixed import bind_mixed
+    lib = _build.load("node_mixed", bind_mixed)
+    gen = torch.Generator().manual_seed(1)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    rows = (mixed_cases(lib, gen, flush, device, L, C, MIXED_BATCHES)
+            + mixed_cases(lib, gen, flush, device, NTU_L, NTU_C,
+                          (NTU_BATCH,)))
+    for dt in ("float32", "bfloat16"):
+        log("  node_mixed {}: {} checks ok, max_abs_err {:.3g}".format(
+            dt, sum(r["dtype"] == dt for r in rows),
+            max(r["max_abs_err"] for r in rows if r["dtype"] == dt)))
+    return rows, mixed_pairs(lib, device, gen, flush)
+
+
+def mixed_cases(lib, gen, flush, device, L, C, batches):
+    """Each of ``MIXED_GAMMAS``, x and y two tensors and one, at each of
+    ``batches``, in fp32 and bf16, against the plain version; the
+    supernet's call (x is y, softmaxed gammas) timed at B=8 and B=96."""
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
     from bmnas_tpu_torch.ops.kernels.node_mixed import (
-        bind_mixed,
         mixed_geometry,
         node_mixed_op_fused,
         node_mixed_op_reference,
     )
-    lib = _build.load("node_mixed", bind_mixed)
-    gen = torch.Generator().manual_seed(1)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        p = mixed_params(gen, dtype, device)
-        for B in MIXED_BATCHES:
+        p = mixed_params(gen, dtype, device, L, C)
+        for B in batches:
             x = torch.randn(B, L, C, generator=gen).to(device, dtype)
             y = torch.randn(B, L, C, generator=gen).to(device, dtype)
             geom = mixed_geometry(lib, B, L, C, x.element_size())
@@ -453,8 +509,8 @@ def mixed_phase(device):
                     tol = TOLS[dtype]
                     ok = bool(torch.isfinite(gf).all()) and bool(
                         (err <= tol + tol * wf.abs()).all())
-                    row = {"gammas": gk, "x_is_y": same, "B": B,
-                           "dtype": str(dtype).split(".")[-1],
+                    row = {"gammas": gk, "x_is_y": same, "B": B, "L": L,
+                           "C": C, "dtype": str(dtype).split(".")[-1],
                            "geometry": geom, "launches": launched,
                            "max_abs_err": float(err.max()),
                            "tolerance": tol, "ok": ok}
@@ -468,26 +524,23 @@ def mixed_phase(device):
                         row["call_ms"] = time_ms(kern, flush, False)
                         row["plain_call_ms"] = time_ms(plain, flush, False)
                         row["bound_ms"], row["bound_by"] = mixed_bound_ms(
-                            B, x.element_size(), True)
+                            B, x.element_size(), True, L, C)
                         row["tc_bound_ms"] = mixed_tc_bound_ms(
-                            B, x.element_size(), True)
+                            B, x.element_size(), True, L, C)
                     rows.append(row)
                     if not ok or launched != 1:
                         raise AssertionError(f"node_mixed disagrees with "
                                              f"its plain version: {row}")
                     if "ms" in row:
-                        log("  node_mixed B={B:<3} {dtype:<8} x is y, "
+                        log("  node_mixed L={L} C={C} B={B:<3} {dtype:<8} "
+                            "x is y, "
                             "softmaxed gammas: ms={ms:.4f} "
                             "plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f}"
                             " ({bound_by}) tc_bound_ms={tc_bound_ms:.5f} "
                             "call_ms={call_ms:.4f} "
                             "plain_call_ms={plain_call_ms:.4f} "
                             "geometry={geometry}".format(**row))
-    for dt in ("float32", "bfloat16"):
-        log("  node_mixed {}: {} checks ok, max_abs_err {:.3g}".format(
-            dt, sum(r["dtype"] == dt for r in rows),
-            max(r["max_abs_err"] for r in rows if r["dtype"] == dt)))
-    return rows, mixed_pairs(lib, device, gen, flush)
+    return rows
 
 
 def mixed_pairs(lib, device, gen, flush):
@@ -1024,11 +1077,12 @@ def search_step_times(exp, data, device, tmp):
                        "eval_step": lambda: fns.eval_step(state, b)}, tmp)
 
 
-def step_times(steps, tmp, iters=10, rounds=3):
+def step_times(steps, tmp, iters=10, rounds=3, trace_iters=5, top=3):
     """Host time of each step (it ends in a synchronize): the median of
     ``iters`` steps, in ``rounds`` rounds that take turns over the steps.
-    Then each step's device busy time and kernel launches from a profiler
-    trace, and the device's idle share of the last round's median."""
+    Then each step's device busy time, kernel launches and ``top`` longest
+    kernels from a profiler trace of ``trace_iters`` steps, and the
+    device's idle share of the last round's median."""
     out = {name: {"host_ms_rounds": []} for name in steps}
     for _ in range(rounds):
         for name, fn in steps.items():
@@ -1041,10 +1095,10 @@ def step_times(steps, tmp, iters=10, rounds=3):
                 times.append((time.perf_counter() - t) * 1e3)
             out[name]["host_ms_rounds"].append(statistics.median(times[2:]))
     for name, fn in steps.items():
-        busy, launches, top = device_busy_ms(fn, tmp)
+        busy, launches, longest = device_busy_ms(fn, tmp, trace_iters, top)
         host = out[name]["host_ms_rounds"][-1]
         out[name].update(
-            host_ms=host, device_busy_ms=busy, top_kernels_ms=top,
+            host_ms=host, device_busy_ms=busy, top_kernels_ms=longest,
             kernel_launches=launches,
             device_idle_share=None if busy is None else 1 - busy / host)
     return out
@@ -1938,6 +1992,539 @@ def ntu_phase(root):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: NTU search and found retraining
+# ---------------------------------------------------------------------------
+
+# the NTU search defaults (cli/ntu.py::parse_search_args): the found ones
+# but for steps 2
+NTU_SEARCH_CFG = dict(NTU_CFG, steps=2)
+# 60 clips a subject for two subjects of each split, train_exp (1, 8), dev
+# (2, 5) and test (3, 6): 120 in each search split (a batch of 96 and one
+# of 24), 240 in train_val (96, 96, 48) and 120 in test; clips of 16
+# frames at 256x256 (the train crop keeps 8-16 of them, the resample 8)
+NTU_TRAIN_SUBJECTS = (1, 8, 2, 5, 3, 6)
+NTU_TRAIN_PER_SUBJECT, NTU_TRAIN_FRAMES = 60, 16
+NTU_STEP_ETA = 1e-5  # the CUDA vs CPU steps' learning rate (FOUND_STEP_ETAS)
+NTU_REMAT_BATCH, NTU_REMAT_TOL = 8, 1e-5
+
+
+def write_ntu_train_data(root):
+    from bmnas_tpu_torch.data.synthetic import make_ntu_synthetic
+    return make_ntu_synthetic(
+        os.path.join(root, "ntu_train_data"),
+        n_videos_per_subject=NTU_TRAIN_PER_SUBJECT,
+        subjects=NTU_TRAIN_SUBJECTS, num_actions=NTU_CFG["num_outputs"],
+        hw=NTU_HW, frames=NTU_TRAIN_FRAMES, ske_frames=40, seed=12)
+
+
+def ntu_first_batch(data, split, device, batch=NTU_BATCH, train=False):
+    """The first batch of a split, unshuffled (with the train crop of epoch
+    seed 0 when ``train``), on ``device``."""
+    from bmnas_tpu_torch.cli.mmimdb import batches_on
+    from bmnas_tpu_torch.data.ntu import NTUDataset
+    ds = NTUDataset(data, split, num_workers=8, train_transform=train)
+    (b,) = batches_on(device, [next(iter(ds.batches(batch, shuffle=False)))])
+    return b
+
+
+def ntu_split_batches(data, split):
+    from bmnas_tpu_torch.data.ntu import NTUDataset
+    return NTUDataset(data, split, num_workers=1).num_batches(NTU_BATCH)
+
+
+def read_exp(exp):
+    with open(os.path.join(exp, "log.txt")) as f:
+        text = f.read()
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rows = [json.loads(r) for r in f]
+    return text, rows
+
+
+def acc_rows_ok(rows, phases):
+    return ([r["phase"] for r in rows] == list(phases)
+            and all(r["metric_name"] == "acc" and math.isfinite(r["loss"])
+                    and 0.0 <= r["metric"] <= 1.0 for r in rows))
+
+
+def ntu_search_run(root, data):
+    """One epoch of the NTU ``main_search`` at the search defaults on the
+    card; checks its files; returns (exp dir, report). The mixed-op kernel
+    must not launch: the loop runs train-mode steps only."""
+    from bmnas_tpu_torch.cli.ntu import main_search
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    cwd = os.getcwd()
+    os.chdir(root)  # main_search writes final_exp/ under the working dir
+    try:
+        before = LAUNCHES["node_mixed"]
+        t0 = time.perf_counter()
+        best_acc, geno = main_search(["--datadir", data, "--epochs", "1",
+                                      "--num_workers", "8"])
+        seconds = time.perf_counter() - t0
+        launched = LAUNCHES["node_mixed"] - before
+    finally:
+        os.chdir(cwd)
+    (exp,) = glob.glob(os.path.join(root, "final_exp", "ntu", "search-EXP-*"))
+    text, rows = read_exp(exp)
+    pkl = os.path.join(exp, "best", "best_genotype.pkl")
+    checks = {
+        "log.txt train/dev Acc lines and best dev accuracy": all(
+            t in text for t in ("train Loss:", "dev Loss:", " Acc: ",
+                                "Current best dev accuracy:")),
+        "metrics.jsonl train+dev, acc, finite": acc_rows_ok(
+            rows, ("train", "dev")),
+        "checkpoint.pt": os.path.exists(os.path.join(exp, "checkpoint.pt")),
+        "best_model.pt": os.path.exists(os.path.join(exp, "best",
+                                                     "best_model.pt")),
+        "best_genotype.pkl, 2 inner steps a cell": os.path.exists(pkl)
+        and load_genotype(pkl) == geno
+        and all(len(st.inner_steps) == 2 for st in geno.steps),
+        "node_mixed launches in the loop: 0": launched == 0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"NTU search: {checks}")
+    return exp, {"seconds": seconds, "best_dev_acc": best_acc,
+                 "metrics": rows, "genotype": str(geno),
+                 "node_mixed_launches_in_loop": launched}
+
+
+def ntu_search_model(exp, device):
+    from bmnas_tpu_torch.models.ntu import SearchableSkeletonImageNet
+    from bmnas_tpu_torch.utils.checkpoint import load_checkpoint
+    sd, arch = load_checkpoint(os.path.join(exp, "best", "best_model.pt"))
+    model = SearchableSkeletonImageNet(**NTU_SEARCH_CFG)
+    model.load_state_dict(sd)
+    return model.to(device), {k: v.to(device) for k, v in arch.items()}
+
+
+def ntu_search_eval(exp, data, device):
+    """The supernet's eval step on a dev batch of 96: steps x node_steps =
+    4 mixed-op launches."""
+    from bmnas_tpu_torch.cli.ntu import counts_fn
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    from bmnas_tpu_torch.search.bilevel import (
+        TrainState,
+        build_step_functions,
+        cross_entropy,
+    )
+    model, arch = ntu_search_model(exp, device)
+    state = TrainState(model=model, arch=arch, opt_w=None, opt_arch=None)
+    b = ntu_first_batch(data, "dev", device)
+    before = LAUNCHES["node_mixed"]
+    c = build_step_functions(cross_entropy, counts_fn).eval_step(state, b)
+    torch.cuda.synchronize()
+    launched = LAUNCHES["node_mixed"] - before
+    want = NTU_SEARCH_CFG["steps"] * NTU_SEARCH_CFG["node_steps"]
+    loss = float(c["loss_sum"]) / float(c["valid"])
+    if not (launched == want and math.isfinite(loss)):
+        raise AssertionError(f"NTU search eval step: {launched} node_mixed "
+                             f"launches (want {want}), loss {loss}")
+    return {"launches": launched, "batch": NTU_BATCH, "loss": loss,
+            "correct": float(c["correct"])}
+
+
+def write_ntu_found_exp(root):
+    """A search experiment dir that holds phase 10's four-cell genotype,
+    which reads video inputs 0, 1 and 3: found retraining on it trains the
+    3D ResNet (a searched genotype may read skeleton inputs only, and then
+    no gradient reaches the ResNet) and has one cell a found step of the
+    found defaults (steps 4)."""
+    from bmnas_tpu_torch.genotype import save_genotype
+    exp = os.path.join(root, "ntu_genotype_exp")
+    os.makedirs(os.path.join(exp, "best"))
+    save_genotype(ntu_genotype(), os.path.join(exp, "best",
+                                               "best_genotype.pkl"))
+    return exp
+
+
+def ntu_found_run(s_exp, data, cells, test_batches):
+    """One epoch of the NTU ``main_found --search_exp_dir --remat`` at the
+    found defaults; the found-cell kernel launches in the test phase only,
+    once a cell and test batch."""
+    from bmnas_tpu_torch.cli.ntu import main_found
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    logger = logging.getLogger("bmnas_tpu_torch")
+    counter = PhaseLaunches()
+    logger.addHandler(counter)
+    before = LAUNCHES["found_cell"]
+    try:
+        t0 = time.perf_counter()
+        acc = main_found(["--search_exp_dir", s_exp, "--datadir", data,
+                          "--epochs", "1", "--remat", "--num_workers", "8"])
+        seconds = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(counter)
+    per_phase = counter.per_phase(before)
+    (eval_dir,) = glob.glob(os.path.join(s_exp, "eval-EXP-*"))
+    text, rows = read_exp(eval_dir)
+    best = os.path.join(eval_dir, "best")
+    checks = {
+        "log.txt train/test Acc lines": all(
+            t in text for t in ("train Loss:", "test Loss:", " Acc: ",
+                                "Current best test accuracy:")),
+        "metrics.jsonl train+test, acc, finite": acc_rows_ok(
+            rows, ("train", "test")),
+        "best_test_model.pt, best_test_genotype.pkl, checkpoint.pt": all(
+            os.path.exists(p) for p in (
+                os.path.join(best, "best_test_model.pt"),
+                os.path.join(best, "best_test_genotype.pkl"),
+                os.path.join(eval_dir, "checkpoint.pt"))),
+        "acc in [0, 1]": 0.0 <= acc <= 1.0,
+        "found_cell launches: train 0, test cells x batches":
+        per_phase == {"train": 0, "test": cells * test_batches},
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"NTU found: {checks}, launches per phase "
+                             f"{per_phase}")
+    return eval_dir, {"seconds": seconds, "best_test_acc": acc,
+                      "metrics": rows,
+                      "found_cell_launches_per_phase": per_phase}
+
+
+def ntu_test_only(eval_dir, data, cells, test_batches):
+    from bmnas_tpu_torch.cli.ntu import main_found
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    before = LAUNCHES["found_cell"]
+    acc = main_found(["--eval_exp_dir", eval_dir, "--datadir", data,
+                      "--num_workers", "8"])
+    launched = LAUNCHES["found_cell"] - before
+    if not (launched == cells * test_batches and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"NTU test-only: acc {acc}, {launched} "
+                             f"found_cell launches over {test_batches} "
+                             f"batches of {cells} cells")
+    return {"acc": acc, "launches": launched, "batches": test_batches}
+
+
+def ntu_serve_eval_dir(eval_dir, data, cells, test_batches):
+    from bmnas_tpu_torch.cli.serve import main_serve
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    before = LAUNCHES["found_cell"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_serve(["--task", "ntu", "--eval_exp_dir", eval_dir,
+                             "--datadir", data, "--num_workers", "8"])
+    sys.stdout.write(buf.getvalue())
+    launched = LAUNCHES["found_cell"] - before
+    if not (result["metric"] == "accuracy" and 0.0 <= result["value"] <= 1.0
+            and result["logits_finite"]
+            and launched == cells * test_batches):
+        raise AssertionError(f"NTU serve of the eval dir: {result}, "
+                             f"{launched} found_cell launches")
+    return dict(result, launches=launched)
+
+
+def _tiny_ntu_batches(rng, n, hw, count):
+    """``count`` host batches of ``n`` samples: uint8 clips of 8 frames at
+    hw x hw, 32-frame skeletons, labels of the 60 classes."""
+    return [{"image": rng.randint(0, 256, (n, 8, hw, hw, 3)).astype(np.uint8),
+             "skeleton": (rng.randn(n, 32, 25, 2, 3) * 0.1).astype(
+                 np.float32),
+             "label": rng.randint(0, 60, (n,)).astype(np.int32),
+             "mask": np.ones((n,), np.float32)} for _ in range(count)]
+
+
+def ntu_steps_cuda_vs_cpu(devices=("cuda", "cpu")):
+    """From the same seeded weights on CUDA and on the CPU, 2 samples at
+    the full width with 64x64 clips, dropout off: one NTU search weight
+    step and one arch step, then the supernet's eval logits (on CUDA through
+    the mixed-op kernel); one found weight step (phase 10's four-cell
+    genotype), then its eval logits (on CUDA through the found-cell
+    kernel). Each within 1e-3; the weight steps at ``NTU_STEP_ETA`` (see
+    ``found_steps_cuda_vs_cpu``)."""
+    from bmnas_tpu_torch.cli.mmimdb import batches_on
+    from bmnas_tpu_torch.cli.ntu import counts_fn
+    from bmnas_tpu_torch.models.ntu import (
+        NTU_SEARCH_FROZEN_PREFIXES,
+        FoundSkeletonImageNet,
+        SearchableSkeletonImageNet,
+    )
+    from bmnas_tpu_torch.models.supernet import init_arch_params
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    from bmnas_tpu_torch.search.bilevel import (
+        TrainState,
+        build_step_functions,
+        cross_entropy,
+        freeze,
+        make_arch_optimizer,
+        make_weight_optimizer,
+    )
+
+    def no_dropout(m):
+        for mod in m.modules():  # HCN drops channels with Dropout2d
+            if isinstance(mod, (torch.nn.Dropout, torch.nn.Dropout2d)):
+                mod.p = 0.0
+        return m
+    torch.manual_seed(13)
+    search = no_dropout(SearchableSkeletonImageNet(**NTU_SEARCH_CFG))
+    found = no_dropout(FoundSkeletonImageNet.from_genotype(
+        ntu_genotype(), device="cpu", **NTU_CFG))
+    arch = init_arch_params(torch.Generator().manual_seed(14), 2, 8, 2)
+    host = _tiny_ntu_batches(np.random.RandomState(15), NTU_CPU_SAMPLES, 64,
+                             4)
+    fns = build_step_functions(cross_entropy, counts_fn)
+    out = {"search": [], "found": []}
+    launched = {"search": [], "found": []}
+    for dev in devices:
+        train_b, dev_b, found_b, probe = batches_on(torch.device(dev), host)
+        net = copy.deepcopy(search).to(dev)
+        freeze(net, NTU_SEARCH_FROZEN_PREFIXES)
+        a = {k: v.detach().clone().to(dev).requires_grad_()
+             for k, v in arch.items()}
+        state = TrainState(
+            model=net, arch=a,
+            opt_w=make_weight_optimizer(net, NTU_SEARCH_FROZEN_PREFIXES,
+                                        3e-4),
+            opt_arch=make_arch_optimizer(a, 3e-4, 1e-3))
+        fns.weight_step(state, train_b, NTU_STEP_ETA)
+        fns.arch_step(state, dev_b)
+        before = LAUNCHES["node_mixed"]
+        with torch.no_grad():
+            out["search"].append(net.eval()(probe, a).float().cpu().numpy())
+        launched["search"].append(LAUNCHES["node_mixed"] - before)
+        del net, state
+        net = copy.deepcopy(found).to(dev)
+        state = TrainState(model=net, arch=None,
+                           opt_w=make_weight_optimizer(net, (), 3e-4),
+                           opt_arch=None)
+        fns.weight_step(state, found_b, NTU_STEP_ETA)
+        before = LAUNCHES["found_cell"]
+        with torch.no_grad():
+            out["found"].append(net.eval()(probe).float().cpu().numpy())
+        launched["found"].append(LAUNCHES["found_cell"] - before)
+        del net, state
+    cuda = [torch.device(d).type == "cuda" for d in devices]
+    want = {"search": [4 if c else 0 for c in cuda],
+            "found": [4 if c else 0 for c in cuda]}
+    res = {}
+    for k in out:
+        diff = float(np.abs(out[k][0] - out[k][1]).max())
+        res[k] = {"max_abs_diff": diff, "tolerance": 1e-3,
+                  "logits_abs_max": float(np.abs(out[k][1]).max()),
+                  "launches": launched[k]}
+        if not (np.isfinite(out[k][0]).all() and diff <= 1e-3
+                and launched[k] == want[k]):
+            raise AssertionError(f"NTU {k} steps CUDA vs CPU: {res[k]}")
+    return res
+
+
+def ntu_found_model(eval_dir, remat, device):
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.models.ntu import FoundSkeletonImageNet
+    from bmnas_tpu_torch.utils.checkpoint import load_model
+    best = os.path.join(eval_dir, "best")
+    model = FoundSkeletonImageNet.from_genotype(
+        load_genotype(os.path.join(best, "best_test_genotype.pkl")),
+        device="cpu", remat=remat, **NTU_CFG)
+    model.load_state_dict(load_model(os.path.join(best,
+                                                  "best_test_model.pt")))
+    return model.to(device)
+
+
+def ntu_found_step(model, batch, eta=1e-3):
+    """One found weight step (every parameter); returns the peak device
+    memory it reached, in bytes, with the memory held before it."""
+    from bmnas_tpu_torch.cli.ntu import counts_fn
+    from bmnas_tpu_torch.search.bilevel import (
+        TrainState,
+        build_step_functions,
+        cross_entropy,
+        make_weight_optimizer,
+    )
+    state = TrainState(model=model, arch=None,
+                       opt_w=make_weight_optimizer(model, (), 3e-4),
+                       opt_arch=None)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build_step_functions(cross_entropy, counts_fn).weight_step(state, batch,
+                                                              eta)
+    torch.cuda.synchronize()
+    return {"peak_bytes": torch.cuda.max_memory_allocated(),
+            "held_before_bytes": held}
+
+
+def ntu_remat_on_card(eval_dir, data, device):
+    """One found weight step at B=8 (8x256x256 clips) from the retrained
+    snapshot with and without ``--remat``, the same batch and dropout
+    masks, under ``deterministic_algorithms``: parameters and BatchNorm
+    statistics within ``NTU_REMAT_TOL``. The first bottleneck's first
+    BatchNorm must run twice in the remat step (the backward's rerun: the
+    gradient reached the ResNet) and once without. Reports each step's
+    peak memory and the ops that ran without a deterministic CUDA kernel
+    (not gated)."""
+    import warnings
+    batch = ntu_first_batch(data, "train_val", device, NTU_REMAT_BATCH,
+                            train=True)
+    out, sds, runs = {}, {}, {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with deterministic_algorithms():
+            for remat in (False, True):
+                model = ntu_found_model(eval_dir, remat, device)
+                calls = []
+                model.rgbnet.cnn.layer1_0.bn1.register_forward_hook(
+                    lambda *a: calls.append(None))
+                torch.manual_seed(16)  # the same dropout masks
+                key = "remat" if remat else "no_remat"
+                out[key] = ntu_found_step(model, batch)
+                runs[key] = len(calls)
+                sds[remat] = {k: v.detach().cpu()
+                              for k, v in model.state_dict().items()}
+                del model
+                torch.cuda.empty_cache()
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught
+                     if "does not have a deterministic" in str(w.message)})
+    params, buffers = [0.0], [0.0]
+    for k, v in sds[False].items():
+        if v.is_floating_point():
+            (buffers if k.endswith(BUFFER_SUFFIXES) else params).append(
+                float((v.double() - sds[True][k].double()).abs().max()))
+    res = dict(out, batch=NTU_REMAT_BATCH, block_runs=runs,
+               max_abs_diff_params=max(params),
+               max_abs_diff_bn_stats=max(buffers), tolerance=NTU_REMAT_TOL,
+               ops_without_deterministic_cuda_kernel=nondet)
+    if (max(params + buffers) > NTU_REMAT_TOL
+            or runs != {"no_remat": 1, "remat": 2}):
+        raise AssertionError(f"--remat differs from no remat: {res}")
+    return res
+
+
+def ntu_train_step_times(s_exp, eval_dir, data, device, tmp):
+    """Batch 96, 8x256x256 clips: the search's weight, arch and eval step
+    (``step_times``, 3 steps a round), then found retraining's weight step
+    with ``--remat`` and eval step, with the weight step's peak memory;
+    last, a found weight step without remat at B=96, which is expected to
+    run out of memory (reported, not gated)."""
+    from bmnas_tpu_torch.cli.ntu import counts_fn
+    from bmnas_tpu_torch.models.ntu import NTU_SEARCH_FROZEN_PREFIXES
+    from bmnas_tpu_torch.search.bilevel import (
+        TrainState,
+        build_step_functions,
+        cross_entropy,
+        freeze,
+        make_arch_optimizer,
+        make_weight_optimizer,
+    )
+    fns = build_step_functions(cross_entropy, counts_fn)
+    model, arch = ntu_search_model(s_exp, device)
+    freeze(model, NTU_SEARCH_FROZEN_PREFIXES)
+    arch = {k: v.detach().clone().requires_grad_() for k, v in arch.items()}
+    state = TrainState(
+        model=model, arch=arch,
+        opt_w=make_weight_optimizer(model, NTU_SEARCH_FROZEN_PREFIXES, 3e-4),
+        opt_arch=make_arch_optimizer(arch, 3e-4, 1e-3))
+    tb = ntu_first_batch(data, "train_exp", device, train=True)
+    db = ntu_first_batch(data, "dev", device)
+    kw = dict(iters=3, rounds=3, trace_iters=2, top=5)
+    out = step_times({
+        "search weight": lambda: fns.weight_step(state, tb, 1e-3),
+        "search arch": lambda: fns.arch_step(state, db),
+        "search eval": lambda: fns.eval_step(state, db)}, tmp, **kw)
+    del model, arch, state, tb, db
+    torch.cuda.empty_cache()
+    model = ntu_found_model(eval_dir, True, device)
+    state = TrainState(model=model, arch=None,
+                       opt_w=make_weight_optimizer(model, (), 3e-4),
+                       opt_arch=None)
+    fb = ntu_first_batch(data, "train_val", device, train=True)
+    eb = ntu_first_batch(data, "test", device)
+    out.update(step_times({
+        "found weight (--remat)": lambda: fns.weight_step(state, fb, 1e-3),
+        "found eval": lambda: fns.eval_step(state, eb)}, tmp, **kw))
+    del state
+    torch.cuda.empty_cache()
+    memory = {"remat_B96": ntu_found_step(model, fb)}
+    del model
+    torch.cuda.empty_cache()
+    model = ntu_found_model(eval_dir, False, device)
+    try:
+        memory["no_remat_B96"] = ntu_found_step(model, fb)
+    except torch.cuda.OutOfMemoryError as e:
+        memory["no_remat_B96"] = {"out_of_memory": str(e).splitlines()[0],
+                                  "peak_bytes":
+                                  torch.cuda.max_memory_allocated()}
+    del model
+    torch.cuda.empty_cache()
+    return out, memory
+
+
+def ntu_train_phase(root, device):
+    """Phase 11. Returns the report and the launch counts of the NTU search
+    path (the search and its eval step) and of the found path (found
+    retraining on the search's genotype and on phase 10's, and
+    test-only)."""
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    t0 = time.perf_counter()
+    data = write_ntu_train_data(root)
+    out = {"write_s": time.perf_counter() - t0}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for convs
+    reset_launches()
+    s_exp, out["search"] = ntu_search_run(root, data)
+    out["search"]["eval"] = ntu_search_eval(s_exp, data, device)
+    search_launches = dict(LAUNCHES)
+    log("  search: {:.1f} s, best dev acc {:.4f}, node_mixed launches: {} "
+        "in the loop, {} in the eval step on a dev batch of {}".format(
+            out["search"]["seconds"], out["search"]["best_dev_acc"],
+            out["search"]["node_mixed_launches_in_loop"],
+            out["search"]["eval"]["launches"], NTU_BATCH))
+    test_batches = ntu_split_batches(data, "test")
+    reset_launches()
+    # found retraining on the search's genotype, then on phase 10's, which
+    # reads video inputs; the later checks use the second
+    for key, exp in (("found_on_search", s_exp),
+                     ("found", write_ntu_found_exp(root))):
+        geno = load_genotype(os.path.join(exp, "best", "best_genotype.pkl"))
+        cells = len(geno.edges) // 2
+        eval_dir, out[key] = ntu_found_run(exp, data, cells, test_batches)
+        out[key]["genotype"] = str(geno)
+        log("  {} (--remat): {:.1f} s, best test acc {:.4f}, found_cell "
+            "launches per phase {} ({} cells, {} test batches), video "
+            "inputs read {}".format(
+                key, out[key]["seconds"], out[key]["best_test_acc"],
+                out[key]["found_cell_launches_per_phase"], cells,
+                test_batches, sorted({i for _, i in geno.edges if i < 4})))
+    out["found"]["test_only"] = ntu_test_only(eval_dir, data, cells,
+                                              test_batches)
+    found_launches = dict(LAUNCHES)
+    log("  test-only: acc {:.6f} with {} launches".format(
+        out["found"]["test_only"]["acc"],
+        out["found"]["test_only"]["launches"]))
+    out["found"]["serve"] = ntu_serve_eval_dir(eval_dir, data, cells,
+                                               test_batches)
+    log("  serve on the eval dir: accuracy {:.6f} (test-only {:.6f}), {} "
+        "found_cell launches".format(out["found"]["serve"]["value"],
+                                     out["found"]["test_only"]["acc"],
+                                     out["found"]["serve"]["launches"]))
+    torch.backends.cudnn.allow_tf32 = False
+    out["steps_cuda_vs_cpu"] = ntu_steps_cuda_vs_cpu()
+    log(f"  NTU steps cuda vs cpu: {out['steps_cuda_vs_cpu']}")
+    torch.backends.cudnn.allow_tf32 = True
+    out["remat"] = ntu_remat_on_card(eval_dir, data, device)
+    log("  remat vs no remat (B={batch}, deterministic): first block's bn1 "
+        "runs {block_runs}, max diff parameters "
+        "{max_abs_diff_params:.3g}, BatchNorm statistics "
+        "{max_abs_diff_bn_stats:.3g} (tolerance {tolerance}); peak memory "
+        "{p0:.2f} GB without remat, {p1:.2f} GB with; ops without a "
+        "deterministic CUDA kernel {ops_without_deterministic_cuda_kernel}"
+        .format(p0=out["remat"]["no_remat"]["peak_bytes"] / 1e9,
+                p1=out["remat"]["remat"]["peak_bytes"] / 1e9,
+                **out["remat"]))
+    out["steps"], out["memory_B96"] = ntu_train_step_times(
+        s_exp, eval_dir, data, device, root)
+    for k, v in out["steps"].items():
+        log(f"  {k} (B={NTU_BATCH}, 8x{NTU_HW}x{NTU_HW}): {step_line(v)}")
+    log("  found weight step peak memory at B={}: {}".format(
+        NTU_BATCH,
+        {k: (v["peak_bytes"] / 1e9, v.get("out_of_memory", "ran"))
+         for k, v in out["memory_B96"].items()}))
+    out["seconds"] = time.perf_counter() - t0
+    return out, search_launches, found_launches
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2124,10 +2711,28 @@ def main(argv=None):
             report["ntu_serve"]["bf16"]["launches"],
             report["ntu_serve"]["fp32"]["batches"]))
 
+    log("[11 NTU search and found retraining] the NTU search defaults "
+        "(steps 2, batch {b}) then found retraining at the found defaults "
+        "with --remat, the full inflated 3D ResNet-50 and HCN, {n} clips of "
+        "{f}x{hw}x{hw} a subject of {s}, one epoch each".format(
+            b=NTU_BATCH, n=NTU_TRAIN_PER_SUBJECT, f=NTU_TRAIN_FRAMES,
+            hw=NTU_HW, s=NTU_TRAIN_SUBJECTS))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ntu_train_")
+    try:
+        (report["ntu_train"], main_path_launches["ntu search"],
+         main_path_launches["ntu found"]) = ntu_train_phase(tmp, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  NTU search and found retraining: {:.1f} s (writing the data "
+        "{:.1f} s)".format(report["ntu_train"]["seconds"],
+                           report["ntu_train"]["write_s"]))
+
     report["main_path_launches"] = main_path_launches
     for path, name in (("serve", "found_cell"), ("found", "found_cell"),
                        ("search", "node_mixed"), ("attention", "attention"),
-                       ("ntu serve", "found_cell")):
+                       ("ntu serve", "found_cell"),
+                       ("ntu search", "node_mixed"),
+                       ("ntu found", "found_cell")):
         if main_path_launches[path][name] == 0:
             raise AssertionError(f"kernel {name} never launched on its main "
                                  f"path ({path})")
@@ -2145,21 +2750,25 @@ def main(argv=None):
     err = lambda rs, dt: max(r["max_abs_err"] for r in rs  # noqa: E731
                              if r["dtype"] == dt)
     (mixed,) = [r for r in mixed_rows if "ms" in r and r["B"] == 8
-                and r["dtype"] == "float32"]
+                and r["C"] == C and r["dtype"] == "float32"]
+    (mixed_ntu,) = [r for r in mixed_rows if "ms" in r and r["C"] == NTU_C
+                    and r["dtype"] == "float32"]
+    launches = {p: main_path_launches[p]
+                for p in ("serve", "found", "ntu serve", "ntu found")}
     attn512 = attn_times[512]
     kernels = {"kernels": [{
         "name": "found_cell",
         "route": "cuda",
         "source": "bmnas_tpu_torch/csrc/found_cell.cu",
         "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:368",
-        "launches": (main_path_launches["serve"]["found_cell"]
-                     + main_path_launches["found"]["found_cell"]
-                     + main_path_launches["ntu serve"]["found_cell"]),
+        "launches": sum(v["found_cell"] for v in launches.values()),
         "launches_by_path": {
-            "serve": main_path_launches["serve"]["found_cell"],
+            "serve": launches["serve"]["found_cell"],
             "found test phase and test-only":
-            main_path_launches["found"]["found_cell"],
-            "ntu serve": main_path_launches["ntu serve"]["found_cell"]},
+            launches["found"]["found_cell"],
+            "ntu serve": launches["ntu serve"]["found_cell"],
+            "ntu found test phase and test-only":
+            launches["ntu found"]["found_cell"]},
         "max_abs_err": err(rows, "float32"),
         "max_abs_err_bf16": err(rows, "bfloat16"),
         "ms": mean("ms"),
@@ -2178,7 +2787,12 @@ def main(argv=None):
         "route": "cuda",
         "source": "bmnas_tpu_torch/csrc/node_mixed.cu",
         "replaces": "bmnas_tpu/ops/kernels/node_mixed.py:201",
-        "launches": main_path_launches["search"]["node_mixed"],
+        "launches": (main_path_launches["search"]["node_mixed"]
+                     + main_path_launches["ntu search"]["node_mixed"]),
+        "launches_by_path": {
+            "search eval step": main_path_launches["search"]["node_mixed"],
+            "ntu search eval step":
+            main_path_launches["ntu search"]["node_mixed"]},
         "max_abs_err": err(mixed_rows, "float32"),
         "max_abs_err_bf16": err(mixed_rows, "bfloat16"),
         "ms": mixed["ms"],
@@ -2190,6 +2804,9 @@ def main(argv=None):
         "geometry": mixed["geometry"],
         "call_ms": mixed["call_ms"],
         "plain_call_ms": mixed["plain_call_ms"],
+        "ntu_width_B96": {k: mixed_ntu[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "tc_bound_ms",
+            "geometry")},
     }, {
         "name": "attention",
         "route": "cuda",
@@ -2220,7 +2837,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    log(f"[11 result] {report['seconds']:.1f} s"
+    log(f"[12 result] {report['seconds']:.1f} s"
         + (f"; full report in {args.out}" if args.out else ""))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

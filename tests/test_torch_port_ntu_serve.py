@@ -245,9 +245,11 @@ def test_serve_cli_ntu_matches_jax_cli(nets, data, tmp_path, capsys):
 
 
 def test_serve_cli_ntu_refuses_task_variant(tmp_path):
+    """Serving builds the found net (the JAX serve CLI ignores the flag),
+    into which an ablation net's snapshot does not load."""
     from bmnas_tpu_torch.cli.serve import main_serve
-    with pytest.raises(SystemExit, match="--task_variant: not ported yet "
-                                         r"\(ROADMAP.md Queue 1 item 4"):
+    with pytest.raises(SystemExit, match="--task_variant: serving builds "
+                                         "the found net"):
         main_serve(["--task", "ntu", "--eval_exp_dir", str(tmp_path),
                     "--device", "cpu", "--task_variant", "ensemble"])
 
