@@ -79,7 +79,7 @@ class FoundNodeCell(nn.Module):
         self.C, self.L = C, L
         self.fused_eval = fused_eval
         self.blocker = found_cell_blocker(self.inner_edges, self.inner_steps,
-                                          C)
+                                          C, L, node_multiplier)
         if self.blocker and (fused_eval or _is_cuda(device)):
             raise ValueError("the found-cell kernel cannot host this "
                              f"genotype: {self.blocker}")

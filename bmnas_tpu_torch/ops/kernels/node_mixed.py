@@ -34,7 +34,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -48,8 +50,11 @@ FUSABLE_STEP_OPS = {"Sum": 0, "ScaleDotAttn": 1, "LinearGLU": 2,
                     "ConcatFC": 3, "cat_conv_relu": 3}
 FUSABLE_EDGES = ("skip", "none")
 MAX_STEPS = 4  # kMaxSteps in csrc/found_cell.cu
-MAX_C = 256  # two threads per channel, at most 512 a block (found_cell.cu)
+MAX_C = 256  # widest C of the cell kernels (found_cell.cu, node_mixed.cu)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+# rows of a found-cell GEMM block: 8 units of two 16-row tiles (one sample
+# a block at the least), one a GEMM warp (csrc/cell_gemm.cuh)
+FOUND_MAX_L = 256
 # rows of one mixed-op block: 8 work units of two 16-row tiles (and three
 # 16-column tiles), one a GEMM warp (csrc/node_mixed.cu)
 MIXED_MAX_L = 256
@@ -102,9 +107,90 @@ def found_cell_steps_cfg(inner_edges, inner_steps) -> StepsCfg:
     return tuple(cfg)
 
 
-def found_cell_blocker(inner_edges, inner_steps, C: int = 8) -> str:
-    """'' when the kernel can host the genotype at width C, else the
-    reason."""
+def found_cell_phases(steps_cfg: StepsCfg, multiplier: int) -> list:
+    """The kernel's phases, one launch each (``plan_phases`` in
+    ``csrc/found_cell.cu``): one a GLU or ConcatFC step, one for the
+    out-conv when ``multiplier != 1``, and a last one for the residual and
+    the LayerNorm, unless no step follows the last GEMM: then that GEMM's
+    phase ends the cell (``fused``). Each phase runs the non-GEMM steps
+    before its GEMM. Per phase: ``kind`` ('glu', 'fc', 'out_conv',
+    'final'), ``fused``, ``nsrc`` (the GEMM's sources), ``slots`` (the
+    states it keeps in shared memory, the zeros of a 'none' edge among
+    them), ``inputs`` (x and y among the states it reads into them) and
+    ``attn`` (an attention among its steps)."""
+    S = len(steps_cfg)
+    cuts, first = [], 0
+    for s, (branch, _, _) in enumerate(steps_cfg):
+        if branch >= 2:
+            cuts.append(("glu" if branch == 2 else "fc", first, s, 2))
+            first = s + 1
+    if multiplier != 1:
+        cuts.append(("out_conv", first, S, multiplier))
+        first = S
+    cuts.append(("final", first, S, 0))
+    phases = []
+    for kind, a, z, nsrc in cuts:
+        local, zero, attn = set(), False, False
+        for s in range(a, z):
+            branch, (sx, ix), (sy, iy) = steps_cfg[s]
+            for skip, i in ((sx, ix), (sy, iy)):
+                if skip:
+                    local.add(i)
+                else:
+                    zero = True
+            local.add(s + 2)
+            attn = attn or branch == 1
+        if kind == "final":
+            local |= {0, S + 2 if multiplier != 1 else S + 1}
+        phases.append(dict(kind=kind, fused=False, nsrc=nsrc,
+                           slots=len(local) + zero,
+                           inputs=len(local & {0, 1}), attn=attn))
+    if len(phases) >= 2 and cuts[-1][1] == cuts[-1][2]:
+        phases.pop()
+        phases[-1]["fused"] = True
+    return phases
+
+
+def found_cell_smem_bytes(L: int, C: int, steps_cfg: StepsCfg,
+                          multiplier: int, itemsize: int = 4) -> int:
+    """Bytes of shared memory of the cell's largest phase at its smallest
+    geometry (one sample a block, 16 columns, a ring of 16-row weight
+    K-tiles), as ``found_cell_smem_bytes`` in ``csrc/found_cell.cu``
+    computes them: the kernel hosts the cell if they fit."""
+    a32 = lambda n: -(-n // 32) * 32  # noqa: E731
+    kk = 8 if itemsize == 4 else 16  # the MMA step
+    worst = 0
+    for ph in found_cell_phases(steps_cfg, multiplier):
+        n = a32(ph["slots"] * L * (C + 4) * 4)
+        if itemsize != 4:  # bf16 x and y as they came, before widening
+            n += a32(ph["inputs"] * L * C * itemsize)
+        if ph["attn"]:
+            n += a32(L * C * 4) + a32(L * L * 4)
+        n += a32((2 + 16) * 4 * 4)  # statistics, a slot a warp and sample
+        if ph["kind"] == "final" or ph["fused"]:
+            n += a32(2 * L * C * itemsize)  # the LayerNorm's affine
+        if ph["fused"]:
+            n += a32(L * C * itemsize)  # the residual's rows
+        if ph["kind"] != "final":
+            K = -(-ph["nsrc"] * C // kk) * kk
+            sets = 2 if ph["kind"] == "glu" else 1
+            rows = -(-L // 16) * 16
+            units = -(-(rows // 16) // 2)
+            splits = 1 if units >= 8 else 8 // units
+            kt = min(16, K)
+            ring = min(-(-K // kt), 4) * kt * (sets * 16 + 16 // itemsize)
+            n += a32(sets * 16 * itemsize)  # the biases
+            n += a32(rows * (K + 16 // itemsize) * itemsize)
+            n += max(a32(max(ring * itemsize, splits * rows * sets * 16 * 4)),
+                     a32(L * C * 4) if ph["fused"] else 0)
+        worst = max(worst, n)
+    return worst
+
+
+def found_cell_blocker(inner_edges, inner_steps, C: int = 8, L: int = 8,
+                       multiplier: int = 1) -> str:
+    """'' when the kernel can host the genotype at width C and length L,
+    else the reason."""
     if C % 8 or C > MAX_C:
         return f"C={C} is not a multiple of 8 up to {MAX_C}"
     bad_ops = [o for o in inner_steps if o not in FUSABLE_STEP_OPS]
@@ -115,6 +201,22 @@ def found_cell_blocker(inner_edges, inner_steps, C: int = 8) -> str:
         return f"inner edge op(s) {bad_edges} not in {FUSABLE_EDGES}"
     if len(inner_steps) > MAX_STEPS:
         return f"{len(inner_steps)} inner steps > {MAX_STEPS}"
+    return _size_blocker(
+        L, C, found_cell_steps_cfg(inner_edges, inner_steps), multiplier)
+
+
+@functools.lru_cache(maxsize=256)
+def _size_blocker(L: int, C: int, steps_cfg: StepsCfg,
+                  multiplier: int) -> str:
+    """'' when the kernel's blocks fit L and C for these steps (in fp32,
+    which needs more shared memory than bf16), else the reason."""
+    phases = found_cell_phases(steps_cfg, multiplier)
+    if L > FOUND_MAX_L and any(p["kind"] != "final" for p in phases):
+        return f"L={L} > {FOUND_MAX_L} rows of a GEMM block"
+    smem = found_cell_smem_bytes(L, C, steps_cfg, multiplier)
+    if smem > SMEM_LIMIT:
+        return (f"L={L}, C={C} needs {smem} B of shared memory a block > "
+                f"{SMEM_LIMIT}")
     return ""
 
 
@@ -154,7 +256,55 @@ def found_node_cell_reference(x: torch.Tensor, y: torch.Tensor,
     return o.to(dtype)
 
 
-def _check(x, y, p: FoundCellParams, steps_cfg: StepsCfg, multiplier: int):
+def found_cell_scratch_numel(B: int, L: int, C: int, S: int) -> int:
+    """fp32 elements of the found cell's scratch: the intermediate states
+    (one a step and the out-conv's output), B x L x C each."""
+    return (S + 1) * B * L * C
+
+
+def _check_scratch(scratch: torch.Tensor, x: torch.Tensor, S: int):
+    B, L, C = x.shape
+    n = found_cell_scratch_numel(B, L, C, S)
+    if scratch.dtype != torch.float32 or scratch.device != x.device:
+        raise TypeError(f"found_cell: scratch is {scratch.dtype} on "
+                        f"{scratch.device}, must be fp32 on {x.device}")
+    if scratch.numel() != n:
+        raise ValueError(f"found_cell: scratch holds {scratch.numel()} "
+                         f"elements, the call needs {n}")
+    if not scratch.is_contiguous() or scratch.data_ptr() % 16:
+        raise ValueError("found_cell: scratch must be contiguous and "
+                         "16-byte aligned")
+
+
+def _check_tickets(tickets: torch.Tensor, x: torch.Tensor):
+    if tickets.dtype != torch.int32 or tickets.device != x.device:
+        raise TypeError(f"found_cell: tickets are {tickets.dtype} on "
+                        f"{tickets.device}, must be int32 on {x.device}")
+    if tickets.numel() < x.shape[0] or not tickets.is_contiguous():
+        raise ValueError(f"found_cell: tickets must be {x.shape[0]} "
+                         "contiguous ints at least")
+
+
+# the tickets of each (device, stream): calls on one stream take turns, and
+# each call leaves them at 0, so one buffer serves every call on the stream
+_TICKETS: dict = {}
+_TICKETS_LOCK = threading.Lock()
+
+
+def _stream_tickets(x: torch.Tensor, stream: int) -> torch.Tensor:
+    """The zeroed tickets of x's device and this stream, at least B."""
+    key = (x.device, stream)
+    with _TICKETS_LOCK:
+        t = _TICKETS.get(key)
+        if t is None or t.numel() < x.shape[0]:
+            t = _TICKETS[key] = torch.zeros(max(x.shape[0], 128),
+                                            dtype=torch.int32,
+                                            device=x.device)
+        return t
+
+
+def _check(x, y, p: FoundCellParams, steps_cfg: StepsCfg, multiplier: int,
+           scratch: Optional[torch.Tensor] = None):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"found_cell: dtype {x.dtype} not in (fp32, bf16)")
     if x.dim() != 3 or y.shape != x.shape:
@@ -196,49 +346,112 @@ def _check(x, y, p: FoundCellParams, steps_cfg: StepsCfg, multiplier: int):
                              "16-byte aligned")
     if y.dtype != x.dtype or y.device != x.device:
         raise TypeError("found_cell: x and y differ in dtype or device")
+    if scratch is not None:
+        _check_scratch(scratch, x, S)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of ``csrc/found_cell.cu`` on a loaded
     library: every pointer and the stream as ``c_void_p``."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.found_cell_forward.argtypes = [
-        ci, vp, vp, vp, ci, ci, ci, ci, ci,
-        ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ci),
-        ctypes.POINTER(vp), ctypes.c_float, vp]
+        ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, pi, pi, pi,
+        ctypes.POINTER(vp), ctypes.c_float, ci, ci, vp]
     lib.found_cell_forward.restype = ci
-    lib.found_cell_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
+    lib.found_cell_smem_bytes.argtypes = [ci, ci, ci, ci, pi, pi, pi, ci]
     lib.found_cell_smem_bytes.restype = ctypes.c_size_t
+    lib.found_cell_geometry.argtypes = [ci, ci, ci, ci, ci, pi, pi, pi, ci,
+                                        ci, ci, pi, pi]
+    lib.found_cell_geometry.restype = ci
     lib.found_cell_error_string.argtypes = [ci]
     lib.found_cell_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _steps_arrays(steps_cfg: StepsCfg):
+    """The C interface's per-step arrays: branch, x source, y source (-1
+    for a 'none' edge)."""
+    S = len(steps_cfg)
+    ints = lambda v: (ctypes.c_int * S)(*v)  # noqa: E731
+    return (ints([b for b, _, _ in steps_cfg]),
+            ints([ix if sx else -1 for _, (sx, ix), _ in steps_cfg]),
+            ints([iy if sy else -1 for _, _, (sy, iy) in steps_cfg]))
+
+
+FOUND_PHASE_KINDS = ("final", "glu", "fc", "out_conv")
+_GEOM_FIELDS = ("kind", "step", "samples_per_block", "cols_per_block",
+                "k_tile", "k_tiles_resident", "blocks", "threads",
+                "blocks_per_sm", "smem_bytes", "fused")
+
+
+def found_cell_geometry(lib: ctypes.CDLL, B: int, L: int, C: int,
+                        steps_cfg: StepsCfg, multiplier: int, itemsize: int,
+                        samples_per_block: int = 0, cols_per_block: int = 0
+                        ) -> list:
+    """The launches ``found_cell_forward`` makes for a call, one dict a
+    phase: its kind ('glu', 'fc', 'out_conv', 'final') and GEMM step (-1
+    for none), samples and output columns a block (the last phase: one
+    sample and all C columns), weight rows a K-tile and K-tiles in shared
+    memory at once (0 without a GEMM), blocks, threads, blocks an SM holds,
+    bytes of shared memory a block, and whether the phase ends the cell
+    (``fused``: its group's last block adds x and normalizes). 0 lets the
+    launcher pick the GEMM phases' samples and columns, as the wrapper
+    does."""
+    n = len(_GEOM_FIELDS)
+    geom = (ctypes.c_int * (n * (MAX_STEPS + 2)))()
+    count = ctypes.c_int(0)
+    rc = lib.found_cell_geometry(
+        B, L, C, len(steps_cfg), multiplier, *_steps_arrays(steps_cfg),
+        itemsize, samples_per_block, cols_per_block, geom,
+        ctypes.byref(count))
+    if rc != 0:
+        raise ValueError(f"found_cell: no geometry hosts B={B}, L={L}, "
+                         f"C={C}, S={samples_per_block}, "
+                         f"nt={cols_per_block}")
+    out = []
+    for i in range(count.value):
+        d = dict(zip(_GEOM_FIELDS, geom[i * n:(i + 1) * n]))
+        d["kind"] = FOUND_PHASE_KINDS[d["kind"]]
+        out.append(d)
+    return out
+
+
 def launch(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
            p: FoundCellParams, steps_cfg: StepsCfg, multiplier: int,
-           eps: float, stream: Optional[int]) -> torch.Tensor:
+           eps: float, stream: Optional[int],
+           scratch: Optional[torch.Tensor] = None,
+           samples_per_block: int = 0, cols_per_block: int = 0,
+           tickets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Call ``found_cell_forward`` of a bound library on checked tensors
-    and return the output; raises if the launch returns an error."""
+    and return the output; raises if a launch returns an error. ``scratch``
+    holds the intermediate states (``found_cell_scratch_numel`` fp32
+    elements on x's device; allocated here when None); ``tickets`` B int32
+    zeros on x's device that the call leaves at zero (allocated here when
+    None; the wrapper keeps one buffer a stream).
+    ``samples_per_block`` (1, 2 or 4) and ``cols_per_block`` (16 or 32) fix
+    the GEMM phases' geometry; 0 lets the launcher pick from B."""
     B, L, C = x.shape
     S = len(steps_cfg)
-    glu = any(b == 2 for b, _, _ in steps_cfg)
-    smem = lib.found_cell_smem_bytes(L, C, S, multiplier, glu,
-                                     x.element_size())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"found_cell: L={L}, C={C}, S={S}, m={multiplier} "
-                         f"needs {smem} B of shared memory > {SMEM_LIMIT}")
+    reason = _size_blocker(L, C, steps_cfg, multiplier)
+    if reason:
+        raise ValueError(f"found_cell: the kernel cannot host this cell: "
+                         f"{reason}")
+    if scratch is None:
+        scratch = torch.empty(found_cell_scratch_numel(B, L, C, S),
+                              dtype=torch.float32, device=x.device)
+    _check_scratch(scratch, x, S)
+    if tickets is None:
+        tickets = torch.zeros(B, dtype=torch.int32, device=x.device)
+    _check_tickets(tickets, x)
     out = torch.empty_like(x)
-    ints = lambda v: (ctypes.c_int * S)(*v)  # noqa: E731
-    branch = ints([b for b, _, _ in steps_cfg])
-    src_x = ints([ix if sx else -1 for _, (sx, ix), _ in steps_cfg])
-    src_y = ints([iy if sy else -1 for _, _, (sy, iy) in steps_cfg])
     ptrs = (ctypes.c_void_p * 10)(*[
         None if t is None else t.data_ptr() for t in p.tensors()])
     dtype_code = 0 if x.dtype == torch.float32 else 1
     rc = lib.found_cell_forward(
         dtype_code, x.data_ptr(), y.data_ptr(), out.data_ptr(),
-        B, L, C, S, multiplier, branch, src_x, src_y, ptrs,
-        float(eps), stream)
+        scratch.data_ptr(), tickets.data_ptr(), B, L, C, S, multiplier,
+        *_steps_arrays(steps_cfg), ptrs, float(eps), samples_per_block,
+        cols_per_block, stream)
     if rc != 0:
         raise RuntimeError("found_cell kernel launch failed: "
                            + lib.found_cell_error_string(rc).decode())
@@ -249,8 +462,9 @@ def found_node_cell_fused(x: torch.Tensor, y: torch.Tensor,
                           p: FoundCellParams, steps_cfg: StepsCfg,
                           multiplier: int = 1, eps: float = 1e-5
                           ) -> torch.Tensor:
-    """The found cell: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. No fallback: a CUDA call launches or raises."""
+    """The found cell: the CUDA kernel for CUDA tensors (one launch a phase
+    of the cell, counted once a call), the plain version for CPU tensors.
+    No fallback: a CUDA call launches or raises."""
     if x.device.type == "cpu":
         return found_node_cell_reference(x, y, p, steps_cfg, multiplier, eps)
     if x.device.type != "cuda":
@@ -260,9 +474,10 @@ def found_node_cell_fused(x: torch.Tensor, y: torch.Tensor,
         return torch.empty_like(x)
     from bmnas_tpu_torch.ops.kernels import _build
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         out = launch(_build.load("found_cell", bind), x, y, p, steps_cfg,
-                     multiplier, eps,
-                     torch.cuda.current_stream(x.device).cuda_stream)
+                     multiplier, eps, stream,
+                     tickets=_stream_tickets(x, stream))
     LAUNCHES["found_cell"] += 1
     return out
 

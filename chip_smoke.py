@@ -22,6 +22,16 @@ line) on any error:
    plain version, beside each configuration's bound (the larger of bytes /
    3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic type)
    and its tensor-core bound (the FLOP at the dense TF32 or bf16 rate).
+   Every call is made twice on the same input: the two outputs must be
+   equal bit for bit, and each wrapper call counts one launch whatever the
+   cell's phases. For LinearGLU, ConcatFC and the four NTU cells at B=8 and
+   B=96: each phase's device time from one ``torch.profiler`` trace of a
+   call, beside the geometry the launcher picked for it. Then the cells of
+   ``FOUND_SWEPT`` (fp32) under every geometry the launcher could take,
+   and as copies of the kernel with its products, its weight stream or
+   both taken out, and with the GEMM code taken out (timed on the Sum and
+   ScaleDotAttn cells too; ``FOUND_ABLATIONS``): what a removal saves is
+   what that part costs.
 4. node_mixed vs plain: the supernet's mixed-op kernel against its plain
    version at L=16, C=192, B in {5, 8, 37, 96}, and at the NTU search
    width, L=8, C=128, B=96, fp32 and bf16 (the same tolerances), with
@@ -318,6 +328,179 @@ def time_ms(fn, flush, hide_host, iters=30, warmup=3):
     return statistics.median(times)
 
 
+# the cells whose phases phase 3 traces one by one
+PHASE_TRACED = [("Sum",), ("ScaleDotAttn",), ("LinearGLU",),
+                ("ConcatFC",)] + [ops for _, _, ops in NTU_KERNEL_CONFIGS]
+# (L, C, B, inner ops, multiplier) that phase 3 times under every geometry
+# the launcher could take and as ablated copies of the kernel
+FOUND_SWEPT = [
+    (L, C, 8, ("LinearGLU",), 1),
+    (L, C, 96, ("LinearGLU",), 1),
+    (L, C, 96, ("LinearGLU", "LinearGLU"), 2),
+    (NTU_L, NTU_C, 96, ("LinearGLU", "LinearGLU"), 2),
+    (NTU_L, NTU_C, 96, ("ScaleDotAttn", "ConcatFC"), 2),
+    (NTU_L, NTU_C, 96, ("Sum", "ScaleDotAttn"), 2),
+]
+# copies of csrc/found_cell.cu and its headers with one part of the work
+# taken out (file, text, replacement), as ATTN_ABLATIONS; their outputs are
+# wrong by design and not checked
+FOUND_ABLATIONS = {
+    "products": [("cell_gemm.cuh", "      Step::mma(acc[0], a, b);\n", ""),
+                 ("cell_gemm.cuh", "        Step::mma(acc[1], a, b);\n",
+                  "")],
+    "weight stream": [(
+        "cell_gemm.cuh",
+        "      cp_async16(d, c.src + static_cast<size_t>(k0 + r) * "
+        "c.stride);", "      ;")],
+}
+FOUND_ABLATIONS["products and weights"] = (
+    FOUND_ABLATIONS["products"] + FOUND_ABLATIONS["weight stream"])
+# the GEMM warps' whole path taken out of the kernel (the compiler drops
+# the GEMM code): what a phase without a GEMM pays for the kernel's size
+FOUND_ABLATIONS["GEMM code"] = [(
+    "found_cell.cu", "  if (gemm && threadIdx.x < kGemmThreads) {",
+    "  if (false) {")]
+# cells timed as the ablated copies besides FOUND_SWEPT: the cells of one
+# phase without a GEMM
+FOUND_ABLATED = FOUND_SWEPT + [(L, C, 8, ("Sum",), 1),
+                               (L, C, 8, ("ScaleDotAttn",), 1)]
+
+
+def kernel_times_us(fn):
+    """(name, device µs) of each kernel one call of ``fn`` launches, in
+    launch order, from one ``torch.profiler`` trace (after one warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return [(e["name"], e["dur"]) for e in sorted(
+        (e for e in events if e.get("ph") == "X"
+         and e.get("cat") == "kernel"), key=lambda e: e["ts"])]
+
+
+def phase_rows(geometry, fn):
+    """The launcher's geometry of each phase of a call beside its device
+    time (``us``; None where the trace lost the kernel)."""
+    times = [d for n, d in kernel_times_us(fn) if "found_cell_kernel" in n]
+    if len(times) != len(geometry):
+        log(f"  found_cell trace: {len(times)} kernels for "
+            f"{len(geometry)} phases")
+        times = [None] * len(geometry)
+    return [dict(g, us=t) for g, t in zip(geometry, times)]
+
+
+def found_cell_sweep(device):
+    """Each cell of ``FOUND_SWEPT`` in fp32 under every (samples, columns)
+    a block that fits its GEMM phases (the launcher's pick marked), then
+    each cell of ``FOUND_ABLATED`` under the launcher's geometry as each
+    copy of ``FOUND_ABLATIONS`` (built together, one nvcc each): CUDA
+    events, median, L2 flushed."""
+    import ctypes
+    from bmnas_tpu_torch.ops.kernels import _build
+    from bmnas_tpu_torch.ops.kernels.node_mixed import (
+        bind,
+        found_cell_geometry,
+        found_cell_scratch_numel,
+        found_cell_steps_cfg,
+        launch,
+    )
+    root = os.path.join(_build.BUILD_DIR, "found_ablation")
+    procs = {}
+    for name, subs in FOUND_ABLATIONS.items():
+        d = os.path.join(root, name.replace(" ", "_"))
+        os.makedirs(d, exist_ok=True)
+        for fname in ("found_cell.cu", "cell_gemm.cuh", "tc_gemm.cuh",
+                      "cell_common.cuh"):
+            with open(os.path.join(_build.CSRC, fname)) as f:
+                text = f.read()
+            for target, old, new in subs:
+                if target == fname:
+                    if old not in text:
+                        raise AssertionError(f"ablation {name!r}: text not "
+                                             f"found in {fname}")
+                    text = text.replace(old, new)
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(text)
+        procs[name] = (d, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+             os.path.join(d, "lib.so"), os.path.join(d, "found_cell.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    lib = _build.load("found_cell", bind)
+    gen = torch.Generator().manual_seed(9)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    cases, rows = [], []
+    for Ll, Cc, B, ops, m in FOUND_ABLATED:
+        cfg = found_cell_steps_cfg(chain_edges(len(ops)), ops)
+        p = random_params(gen, len(ops), m, torch.float32, device, Ll, Cc)
+        x = torch.randn(B, Ll, Cc, generator=gen).to(device)
+        y = torch.randn(B, Ll, Cc, generator=gen).to(device)
+        scratch = torch.empty(found_cell_scratch_numel(B, Ll, Cc, len(ops)),
+                              device=device)
+        tickets = torch.zeros(B, dtype=torch.int32, device=device)
+        pick = found_cell_geometry(lib, B, Ll, Cc, cfg, m, 4)
+        cases.append((Ll, Cc, B, ops, m, cfg, p, x, y, scratch, tickets))
+        if (Ll, Cc, B, ops, m) not in FOUND_SWEPT:
+            continue
+        for S in (1, 2, 4):
+            for nt in (16, 32):
+                try:
+                    geom = found_cell_geometry(lib, B, Ll, Cc, cfg, m, 4, S,
+                                               nt)
+                except ValueError:
+                    continue
+
+                def run(S=S, nt=nt):
+                    return launch(lib, x, y, p, cfg, m, 1e-5, stream,
+                                  scratch, S, nt, tickets)
+                picked = geom == pick
+                row = {"ops": "+".join(ops), "L": Ll, "C": Cc, "B": B,
+                       "S": S, "nt": nt, "picked": picked,
+                       "blocks": [g["blocks"] for g in geom],
+                       "ms": time_ms(run, flush, True)}
+                rows.append(row)
+                log("  found_cell sweep {ops:<24} L={L:<2} C={C:<3} "
+                    "B={B:<3} S={S} nt={nt:<2} blocks={blocks} "
+                    "ms={ms:.4f}".format(**row)
+                    + (" (the launcher's pick)" if picked else ""))
+    libs = {"none (the kernel)": lib}
+    for name, (d, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"ablation {name!r} did not build:\n{out}")
+        libs[name] = bind(ctypes.CDLL(os.path.join(d, "lib.so")))
+    ablation = []
+    for Ll, Cc, B, ops, m, cfg, p, x, y, scratch, tickets in cases:
+        full = None
+        gemm = m != 1 or any(op in ("LinearGLU", "ConcatFC") for op in ops)
+        for name, alib in libs.items():
+            if gemm and name == "GEMM code":
+                continue  # its GEMM phases would not run
+
+            def run(alib=alib):
+                return launch(alib, x, y, p, cfg, m, 1e-5, stream, scratch,
+                              0, 0, tickets)
+            ms = time_ms(run, flush, True)
+            full = ms if full is None else full
+            ablation.append({"ops": "+".join(ops), "L": Ll, "C": Cc, "B": B,
+                             "removed": name, "ms": ms,
+                             "saved_ms": full - ms})
+            log(f"  found_cell ablation {'+'.join(ops):<24} L={Ll:<2} "
+                f"C={Cc:<3} B={B:<3} removed {name:<20} ms={ms:.4f} "
+                f"saved_ms={full - ms:.4f}")
+    return rows, ablation
+
+
 def kernel_phase(device):
     """The MM-IMDB width (``CONFIGS`` at L=16, C=192, B in 8/37/96), then
     the NTU serving width (``NTU_KERNEL_CONFIGS`` at L=8, C=128, B in
@@ -338,13 +521,16 @@ def kernel_phase(device):
 def cell_cases(gen, flush, device, node_steps, m, ops, Ll, Cc, batches):
     """One cell configuration against its plain version in fp32 and bf16 at
     each B of ``batches``, timed at B=8 and B=96."""
-    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES, _build
     from bmnas_tpu_torch.ops.kernels.node_mixed import (
+        bind,
+        found_cell_geometry,
         found_cell_steps_cfg,
         found_node_cell_fused,
         found_node_cell_reference,
     )
     rows = []
+    lib = _build.load("found_cell", bind)
     cfg = found_cell_steps_cfg(chain_edges(node_steps), ops)
     for dtype in (torch.float32, torch.bfloat16):
         p = random_params(gen, node_steps, m, dtype, device, Ll, Cc)
@@ -355,16 +541,20 @@ def cell_cases(gen, flush, device, node_steps, m, ops, Ll, Cc, batches):
             got = found_node_cell_fused(x, y, p, cfg, m)
             torch.cuda.synchronize()
             launched = LAUNCHES["found_cell"] - before
+            repeat = torch.equal(got, found_node_cell_fused(x, y, p, cfg, m))
             want = found_node_cell_reference(x, y, p, cfg, m)
             g, w = got.float(), want.float()
             err = (g - w).abs()
             tol = TOLS[dtype]
             ok = bool(torch.isfinite(g).all()) and bool(
                 (err <= tol + tol * w.abs()).all())
+            geometry = found_cell_geometry(lib, B, Ll, Cc, cfg, m,
+                                           x.element_size())
             row = {"ops": "+".join(ops), "node_steps": node_steps,
                    "m": m, "L": Ll, "C": Cc, "B": B,
                    "dtype": str(dtype).split(".")[-1],
-                   "launches": launched,
+                   "launches": launched, "phases": len(geometry),
+                   "bitwise_repeat": repeat,
                    "max_abs_err": float(err.max()),
                    "tolerance": tol, "ok": ok}
             if B in (8, 96):
@@ -380,18 +570,27 @@ def cell_cases(gen, flush, device, node_steps, m, ops, Ll, Cc, batches):
                     B, cfg, m, x.element_size(), Ll, Cc)
                 row["tc_bound_ms"] = tc_bound_ms(
                     B, cfg, m, x.element_size(), Ll, Cc)
+                if ops in PHASE_TRACED:
+                    row["phase_times"] = phase_rows(geometry, kern)
             rows.append(row)
             log("  found_cell {ops:<30} L={L:<2} C={C:<3} B={B:<3} "
-                "{dtype:<8} max_abs_err={max_abs_err:.3g} ok={ok}".format(
+                "{dtype:<8} max_abs_err={max_abs_err:.3g} ok={ok} "
+                "phases={phases} bitwise_repeat={bitwise_repeat}".format(
                     **row)
                 + ("  ms={ms:.4f} plain_ms={plain_ms:.4f} "
                    "bound_ms={bound_ms:.5f} tc_bound_ms={tc_bound_ms:.5f} "
                    "call_ms={call_ms:.4f} "
                    "plain_call_ms={plain_call_ms:.4f}".format(**row)
                    if "ms" in row else ""))
-            if not ok or launched != 1:
+            for ph in row.get("phase_times", []):
+                log("    phase {kind:<8} step={step:<2} S={samples_per_block} "
+                    "nt={cols_per_block:<3} kt={k_tile:<2} "
+                    "resident={k_tiles_resident:<2} blocks={blocks:<4} "
+                    "threads={threads} per_sm={blocks_per_sm} "
+                    "smem={smem_bytes} us={us}".format(**ph))
+            if not ok or launched != 1 or not repeat:
                 raise AssertionError(f"found_cell disagrees with its "
-                                     f"plain version: {row}")
+                                     f"plain version, or with itself: {row}")
     return rows
 
 
@@ -2566,6 +2765,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = kernel_phase(device)
     report["found_cell"] = rows
+    report["found_cell_sweep"], report["found_cell_ablation"] = \
+        found_cell_sweep(device)
 
     log(f"[4 node_mixed vs plain] L=16 C=192, B in {MIXED_BATCHES}, "
         f"{len(MIXED_GAMMAS)} gamma kinds, x != y and x is y")

@@ -184,17 +184,32 @@ def test_unhostable_genotype_refused():
 
 @pytest.mark.parametrize("bad,err", [
     ("dtype", TypeError), ("shape", ValueError), ("steps", ValueError),
-    ("index", ValueError), ("contig", ValueError), ("mult", ValueError)])
+    ("index", ValueError), ("contig", ValueError), ("mult", ValueError),
+    ("scratch_dtype", TypeError), ("scratch_device", TypeError),
+    ("scratch_size", ValueError), ("scratch_align", ValueError)])
 def test_wrapper_checks(bad, err):
     """The checks the wrapper makes before a CUDA launch (run here on CPU
-    tensors, where no launch follows)."""
+    tensors, where no launch follows), the scratch of intermediate states
+    among them: fp32, on x's device, (steps + 1) x B x L x C elements,
+    16-byte aligned."""
     rng = np.random.RandomState(5)
     p = _port_params(_random_params(rng, 1, 1))
     x = torch.zeros(B, L, C)
     y = torch.zeros(B, L, C)
     cfg = ((2, (True, 0), (True, 1)),)
     m = 1
-    if bad == "dtype":
+    n = tnm.found_cell_scratch_numel(B, L, C, 1)
+    assert n == 2 * B * L * C
+    scratch = torch.empty(n)
+    if bad == "scratch_dtype":
+        scratch = scratch.double()
+    elif bad == "scratch_device":
+        scratch = torch.empty(n, device="meta")
+    elif bad == "scratch_size":
+        scratch = torch.empty(n - 4)
+    elif bad == "scratch_align":
+        scratch = torch.empty(n + 1)[1:]
+    elif bad == "dtype":
         x, y = x.double(), y.double()
     elif bad == "shape":
         y = torch.zeros(B, L, C + 1)
@@ -207,6 +222,30 @@ def test_wrapper_checks(bad, err):
     else:
         m = 4
     with pytest.raises(err):
-        tnm._check(x, y, p, cfg, m)
+        tnm._check(x, y, p, cfg, m, scratch)
     tnm._check(torch.zeros(B, L, C), torch.zeros(B, L, C), p,
-               ((2, (True, 0), (True, 1)),), 1)
+               ((2, (True, 0), (True, 1)),), 1, torch.empty(n))
+
+
+def test_blocker_limits():
+    """The kernel's limits on L and shared memory reach the blocker, so a
+    cell built for CUDA refuses them up front: more rows than a GEMM block
+    holds, and an attention whose (L, L) scores and states overflow a
+    block; a cell without GEMM is not bound by the rows."""
+    glu = (("skip", 0), ("skip", 1))
+    assert tnm.found_cell_blocker(glu, ("LinearGLU",), 192, 16) == ""
+    assert "rows of a GEMM block" in tnm.found_cell_blocker(
+        glu, ("LinearGLU",), 8, tnm.FOUND_MAX_L + 1)
+    assert tnm.found_cell_blocker(glu, ("Sum",), 8, tnm.FOUND_MAX_L + 1) \
+        == ""
+    assert "shared memory" in tnm.found_cell_blocker(
+        glu, ("ScaleDotAttn",), 192, 128)
+    # the NTU serving cells at C=128, L=8, and the widest ones the tests run
+    for ops in (("LinearGLU", "LinearGLU"), ("Sum", "ScaleDotAttn")):
+        assert tnm.found_cell_blocker(_chain_edges(2), ops, 128, 8, 2) == ""
+    assert tnm.found_cell_blocker(
+        _chain_edges(4), ("LinearGLU", "Sum", "ConcatFC", "ScaleDotAttn"),
+        256, 16, 6) == ""
+    with pytest.raises(ValueError, match="cannot host"):
+        FoundNodeCell(glu, ("ScaleDotAttn",), 1, 1, 192, 128, 0.0,
+                      device="cuda")

@@ -98,7 +98,14 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   return r;
 }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+// a block's ticket: blocks run one after another, so the fences have
+// nothing to order and the last block of a group is the last in index order
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 struct float4 { float x, y, z, w; };
+inline float4 __ldcg(const float4* p) { return *p; }
 struct float2 { float x, y; };
 struct uint2 { unsigned x, y; };
 inline float4 make_float4(float a, float b, float c, float d) {
@@ -368,8 +375,6 @@ HEADER_STAND_INS = {
                       "{ emu_cp_async(s, g); }",
         "cp_async_commit": "inline void cp_async_commit() "
                            "{ emu_cp_commit(); }",
-        "cp_async_wait_one": "inline void cp_async_wait_one() "
-                             "{ emu_cp_wait(1); }",
     },
     # template <int N> stays in front of the stand-in
     "tc_gemm.cuh": {
@@ -379,6 +384,8 @@ HEADER_STAND_INS = {
         "group_arrive": "inline void group_arrive(int id, int n) "
                         "{ emu_group_arrive(id, n); }",
     },
+    # no inline PTX: written beside the others as it is
+    "cell_gemm.cuh": {},
 }
 
 
@@ -508,9 +515,19 @@ def _params(gen, S, m, L, C, dtype):
         ln2_scale=r(L, C), ln2_bias=r(L, C))
 
 
-def _compare(lib, x, y, p, cfg, m):
-    tnm._check(x, y, p, cfg, m)
-    got = tnm.launch(lib, x, y, p, cfg, m, 1e-5, None).float()
+def _nan_scratch(x, cfg):
+    """The kernel's scratch filled with NaNs: a state read before it is
+    written shows in the output."""
+    B, L, C = x.shape
+    return torch.full((tnm.found_cell_scratch_numel(B, L, C, len(cfg)),),
+                      float("nan"))
+
+
+def _compare(lib, x, y, p, cfg, m, **geom):
+    scratch = _nan_scratch(x, cfg)
+    tnm._check(x, y, p, cfg, m, scratch)
+    got = tnm.launch(lib, x, y, p, cfg, m, 1e-5, None, scratch,
+                     **geom).float()
     want = tnm.found_node_cell_reference(x, y, p, cfg, m).float()
     tol = TOLS[x.dtype]
     assert torch.isfinite(got).all()
@@ -580,6 +597,235 @@ def test_kernel_refuses_width(emu_lib):
     with pytest.raises(RuntimeError, match="launch failed"):
         tnm.launch(emu_lib, x, x, p, ((0, (True, 0), (True, 1)),), 1, 1e-5,
                    None)
+
+
+def _cell_inputs(gen, B, L, C, S, m, dtype):
+    p = _params(gen, S, m, L, C, dtype)
+    x = torch.randn(B, L, C, generator=gen).to(dtype)
+    y = torch.randn(B, L, C, generator=gen).to(dtype)
+    return p, x, y
+
+
+def _chain(ops):
+    return tnm.found_cell_steps_cfg(
+        tuple(e for i in range(len(ops)) for e in (("skip", i),
+                                                   ("skip", i + 1))), ops)
+
+
+# (inner ops, multiplier, the phases: one launch each; '*' marks the GEMM
+# phase that ends the cell with the residual and the LayerNorm)
+PHASE_PLANS = [
+    (("Sum",), 1, ("final",)),
+    (("ScaleDotAttn",), 1, ("final",)),
+    (("LinearGLU",), 1, ("glu*",)),
+    (("LinearGLU", "Sum"), 1, ("glu", "final")),
+    (("LinearGLU", "LinearGLU"), 2, ("glu", "glu", "out_conv*")),
+    (("ScaleDotAttn", "ConcatFC"), 2, ("fc", "out_conv*")),
+    (("ConcatFC", "Sum"), 2, ("fc", "out_conv*")),
+    (("Sum", "ScaleDotAttn"), 2, ("out_conv*",)),
+    (("ScaleDotAttn", "Sum", "ConcatFC"), 1, ("fc*",)),
+    (("LinearGLU", "ConcatFC", "LinearGLU"), 2,
+     ("glu", "fc", "glu", "out_conv*")),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("ops,m,kinds", PHASE_PLANS,
+                         ids=["-".join(o) + f"-m{m}"
+                              for o, m, _ in PHASE_PLANS])
+def test_kernel_phase_plans(emu_lib, ops, m, kinds, dtype):
+    """Every phase plan: one launch (no GEMM and m = 1, or a last GEMM that
+    ends the cell), two, three and four (the NTU serving cells' op pairs,
+    chained, m = 2; the 3-step ScaleDotAttn+Sum+ConcatFC; a step after the
+    last GEMM, which keeps a last phase of its own), the plan the C
+    function reports equal to ``found_cell_phases``, against
+    ``found_node_cell_reference`` on a NaN scratch. B=3 (the last GEMM
+    group ragged at two samples a block), L=8, C=16."""
+    B, L, C = 3, 8, 16
+    cfg = _chain(ops)
+    itemsize = 4 if dtype == torch.float32 else 2
+    geom = tnm.found_cell_geometry(emu_lib, B, L, C, cfg, m, itemsize)
+    mark = lambda ph: ph["kind"] + "*" * ph["fused"]  # noqa: E731
+    assert tuple(mark(g) for g in geom) == kinds
+    assert tuple(mark(p) for p in tnm.found_cell_phases(cfg, m)) == kinds
+    assert [g["threads"] for g in geom] == [
+        256 if k == "final" else 512 for k in kinds]
+    gen = torch.Generator().manual_seed(len(ops) * 10 + m)
+    p, x, y = _cell_inputs(gen, B, L, C, len(ops), m, dtype)
+    _compare(emu_lib, x, y, p, cfg, m)
+
+
+# inner edges with 'none' (zeros) in an attention and in a GEMM, read in
+# the phase that computes them, in a later GEMM phase and in the last phase
+NONE_EDGE_CELLS = {
+    "attn-glu-fc-m3": (
+        (("none", 0), ("skip", 1), ("skip", 2), ("none", 0),
+         ("skip", 3), ("skip", 0)),
+        ("ScaleDotAttn", "LinearGLU", "ConcatFC"), 3),
+    "glu-attn-sum-m1": (
+        (("skip", 0), ("none", 1), ("skip", 2), ("none", 0),
+         ("none", 1), ("skip", 3)),
+        ("LinearGLU", "ScaleDotAttn", "Sum"), 1),
+}
+
+
+@pytest.mark.parametrize("B", [1, 2, 37])
+@pytest.mark.parametrize("cell", list(NONE_EDGE_CELLS))
+def test_kernel_batches_and_none_edges(emu_lib, cell, B):
+    """B of one sample, two, and 37 (ten groups of four samples the last of
+    one, at L=8), with 'none' edges: an attention over zero queries inside
+    a GEMM phase, a GEMM half of zeros, and an attention over zero values
+    and a Sum in the last phase; on a NaN scratch, in fp32, and in bf16 at
+    B=1 and 2."""
+    L, C = 8, 16
+    edges, ops, m = NONE_EDGE_CELLS[cell]
+    cfg = tnm.found_cell_steps_cfg(edges, ops)
+    for dtype in (torch.float32, torch.bfloat16)[:2 if B <= 2 else 1]:
+        gen = torch.Generator().manual_seed(B)
+        p, x, y = _cell_inputs(gen, B, L, C, len(ops), m, dtype)
+        _compare(emu_lib, x, y, p, cfg, m)
+
+
+# (inner ops, multiplier, C): a GLU and a ConcatFC phase and a 3-way
+# out-conv whose depth (3 x 40) is not a multiple of bf16's MMA step, and a
+# cell of every step kind with a 6-way out-conv 528 rows deep at C=88, more
+# K-tiles than shared memory holds, so its weights take the ring
+GEOMETRY_CELLS = {
+    "odd-depth": (("LinearGLU", "ConcatFC"), 3, 40),
+    "four-phases-ring": (("LinearGLU", "Sum", "ConcatFC", "ScaleDotAttn"),
+                         6, 88),
+}
+
+
+def _geometry_case(emu_lib, cell, S, nt, dtype):
+    B, L = 5, 8
+    ops, m, C = GEOMETRY_CELLS[cell]
+    cfg = _chain(ops)
+    itemsize = 4 if dtype == torch.float32 else 2
+    kk = 8 if itemsize == 4 else 16  # the MMA step
+    geom = tnm.found_cell_geometry(emu_lib, B, L, C, cfg, m, itemsize, S, nt)
+    for g in geom:
+        if g["kind"] == "final":
+            assert (g["samples_per_block"], g["blocks"]) == (1, B)
+            continue
+        assert (g["samples_per_block"], g["cols_per_block"]) == (S, nt)
+        assert g["blocks"] == -(-B // S) * -(-C // nt)
+        assert g["smem_bytes"] <= tnm.SMEM_LIMIT
+        nsrc = m if g["kind"] == "out_conv" else 2
+        depth = -(-nsrc * C // kk) * kk
+        resident = g["k_tiles_resident"] * g["k_tile"]
+        if cell == "four-phases-ring" and g["kind"] == "out_conv":
+            assert resident < depth  # a ring: more than 8 K-tiles
+        else:
+            assert resident >= depth  # the whole slab
+    gen = torch.Generator().manual_seed(S * 100 + nt)
+    p, x, y = _cell_inputs(gen, B, L, C, len(ops), m, dtype)
+    _compare(emu_lib, x, y, p, cfg, m, samples_per_block=S,
+             cols_per_block=nt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,nt", [(1, 16), (1, 32), (2, 16), (2, 32),
+                                  (4, 16), (4, 32)])
+def test_kernel_geometries(emu_lib, S, nt, dtype):
+    """Each geometry the launcher can pick for the GEMM phases (one, two or
+    four samples a block; 16 or 32 columns, ragged at C=40) at B=5 (a
+    ragged last group), L=8, for a GLU, a ConcatFC and an out-conv phase
+    whose bf16 depth pads to the MMA step, against the plain version on a
+    NaN scratch, the weights whole in shared memory."""
+    _geometry_case(emu_lib, "odd-depth", S, nt, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernel_weight_ring(emu_lib, dtype):
+    """A cell of every step kind whose 6-way out-conv (528 rows deep at
+    C=88) takes the weights through a ring of K-tiles, one sample and 16
+    columns a block."""
+    _geometry_case(emu_lib, "four-phases-ring", 1, 16, dtype)
+
+
+@pytest.mark.parametrize("L,C,B,ops,m,picks", [
+    (16, 192, 8, ("LinearGLU",), 1, [(1, 16, 96)]),
+    (16, 192, 37, ("LinearGLU",), 1, [(2, 32, 114)]),
+    (16, 192, 96, ("LinearGLU",), 1, [(2, 32, 288)]),
+    (16, 192, 96, ("ConcatFC",), 1, [(2, 32, 288)]),
+    (16, 192, 8, ("LinearGLU", "Sum"), 1, [(1, 16, 96), (1, 192, 8)]),
+    (8, 128, 8, ("LinearGLU", "LinearGLU"), 2, [(1, 16, 64)] * 3),
+    (8, 128, 96, ("LinearGLU", "LinearGLU"), 2, [(4, 32, 96)] * 3),
+    (8, 128, 96, ("Sum", "ScaleDotAttn"), 2, [(4, 32, 96)]),
+], ids=["mmimdb-glu-B8", "mmimdb-glu-B37", "mmimdb-glu-B96",
+        "mmimdb-fc-B96", "mmimdb-glu-sum-B8", "ntu-glu-B8", "ntu-glu-B96",
+        "ntu-sum-attn-B96"])
+def test_found_launcher_fills_the_card(emu_lib, L, C, B, ops, m, picks):
+    """At the MM-IMDB (L=16, C=192) and NTU (L=8, C=128) widths the
+    launcher spreads each GEMM phase over the card's 132 SMs (one 512-thread
+    block an SM): one sample and 16 columns a block at B=8 (96 and 64
+    blocks), two samples and 32 columns at MM-IMDB's B=37 and B=96, four
+    samples and 32 columns at NTU's B=96 (96 blocks, one wave); a last
+    phase of its own (a step after the last GEMM) a sample a block; in fp32
+    and bf16, within the shared memory a block may take."""
+    cfg = _chain(ops)
+    for itemsize in (4, 2):
+        geom = tnm.found_cell_geometry(emu_lib, B, L, C, cfg, m, itemsize)
+        assert [(g["samples_per_block"], g["cols_per_block"], g["blocks"])
+                for g in geom] == picks
+        assert all(g["smem_bytes"] <= tnm.SMEM_LIMIT for g in geom)
+
+
+def test_kernel_tickets_return_to_zero(emu_lib):
+    """A phase that ends the cell takes a ticket a sample group; the last
+    block of each group leaves it at 0, so one buffer serves call after
+    call, and the same input gives the same output bit for bit."""
+    B, L, C = 3, 8, 24
+    cfg = _chain(("ConcatFC", "LinearGLU"))
+    gen = torch.Generator().manual_seed(21)
+    p, x, y = _cell_inputs(gen, B, L, C, 2, 2, torch.float32)
+    tickets = torch.zeros(B, dtype=torch.int32)
+    outs = []
+    for S, nt in [(2, 16), (1, 16), (2, 16)]:
+        outs.append(tnm.launch(emu_lib, x, y, p, cfg, 2, 1e-5, None,
+                               _nan_scratch(x, cfg), S, nt, tickets))
+        assert not tickets.any()
+    assert torch.equal(outs[0], outs[2])
+    want = tnm.found_node_cell_reference(x, y, p, cfg, 2)
+    for got in outs:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_smem_bytes_match_the_kernel(emu_lib):
+    """``found_cell_smem_bytes`` in Python (what the blocker reads) equals
+    the C function for every cell of these tests, both storage types and
+    several widths and lengths."""
+    cells = [(_chain(o), m) for _, m, o in CONFIGS]
+    cells += [(_chain(o), m) for o, m, _ in PHASE_PLANS]
+    cells += [(_chain(o), m) for o, m, _ in GEOMETRY_CELLS.values()]
+    cells += [(tnm.found_cell_steps_cfg(e, o), m)
+              for e, o, m in NONE_EDGE_CELLS.values()]
+    for cfg, m in cells:
+        for L, C in [(8, 16), (16, 192), (8, 128), (20, 88), (64, 256)]:
+            for itemsize in (4, 2):
+                want = emu_lib.found_cell_smem_bytes(
+                    L, C, len(cfg), m, *tnm._steps_arrays(cfg), itemsize)
+                assert tnm.found_cell_smem_bytes(
+                    L, C, cfg, m, itemsize) == want, (cfg, m, L, C)
+
+
+def test_kernel_refuses_geometry(emu_lib):
+    """Three samples a block is refused by the C function; a cell longer
+    than a GEMM block's rows is refused by the binding."""
+    gen = torch.Generator().manual_seed(9)
+    cfg = _chain(("LinearGLU",))
+    p, x, y = _cell_inputs(gen, 4, 8, 16, 1, 1, torch.float32)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tnm.launch(emu_lib, x, y, p, cfg, 1, 1e-5, None,
+                   samples_per_block=3)
+    L = tnm.FOUND_MAX_L + 1
+    p, x, y = _cell_inputs(gen, 1, L, 8, 1, 1, torch.float32)
+    with pytest.raises(ValueError, match="cannot host"):
+        tnm.launch(emu_lib, x, y, p, cfg, 1, 1e-5, None)
 
 
 # ---------------------------------------------------------------------------
