@@ -19,12 +19,26 @@
 // fp32 weights, and a whole cell moves a few MB at most: 0.1-4 us at the
 // card's rates (0.4-0.6 us on the tensor cores), less than one launch. So the
 // time is latency: how many SMs share each product, how soon the weights
-// arrive, and how long each block's chain of dependent steps is. The design
-// before this one ran a whole cell in one block a sample, its GEMMs in fp32
-// FMA, so a GLU step at C = 192 took ~38 us whatever B.
+// arrive, and how long each block's chain of dependent steps is.
 //
-// The design:
-//   * phases. A later step, the out-conv and the final LayerNorm each need
+// Two designs, a kernel each:
+//   * the whole cell in one block a sample (kWhole, cell_whole.cuh): every
+//     state in shared memory, the GEMMs in fp32 FMA with the weights
+//     streamed in K-tiles, one launch. A GLU step at C = 192 takes ~38 us
+//     whatever B, since one SM runs a sample's chain.
+//   * the phases, below: each GEMM spread over the card, a launch a phase.
+//   The launcher takes the phases where they gain: for a cell with a GEMM
+//   step or an out-conv while B leaves more than half of the card's SMs
+//   idle (2 B < SMs), and for a cell with an attention and no GEMM, whose
+//   one phase runs the attention faster. Otherwise, where B blocks already
+//   fill the card or a cell is Sums alone, it takes one block a sample. On
+//   the H100 (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py phase 3) the
+//   phases took a GLU cell at B = 8 from 38.2 to 19.0 us, but at B = 96,
+//   where one block a sample fills 96 SMs, they were slower in every cell
+//   with a GEMM (LinearGLU 60.8 against 39.3 us).
+//
+// The phases:
+//   * A later step, the out-conv and the final LayerNorm each need
 //     every column of a GEMM's output, so the host cuts the cell's static
 //     plan into phases at its GEMM outputs, one launch each: a phase a GLU
 //     or ConcatFC step and one for the out-conv. The last GEMM phase ends the
@@ -75,20 +89,21 @@
 //     work, and the code a phase runs counts: rolling the loops of the last
 //     phase took the ScaleDotAttn cell from 24.4 to 17.3 us, so the paths
 //     keep their loops over states and samples rolled. Where B alone fills
-//     the card (B = 96) a phase's product takes 3 waves of blocks and the
-//     cell is slower than one block a sample was; blocks of whole rows, the
-//     whole cell in one launch, were slower still (LinearGLU at B = 96: 99
-//     us), with the 3xTF32 WMMA loop at about a tenth of the TF32 rate.
+//     the card (B = 96) a phase's product takes up to 3 waves of blocks;
+//     blocks of whole rows, the whole cell in one launch, were slower still
+//     (LinearGLU at B = 96: 99 us), with the 3xTF32 WMMA loop at about a
+//     tenth of the TF32 rate. There the launcher takes one block a sample.
 //
 // Requirements: C % 8 == 0, 8 <= C <= 256, and a geometry whose shared
-// memory fits (in a GEMM phase at most 256 rows a block, so L <= 256),
-// checked here; 16-byte aligned tensors, a scratch of (S + 1) B L C floats
-// and B zeroed int tickets, checked by the wrapper.
+// memory fits (in a GEMM phase at most 256 rows a block, so L <= 256; the
+// launcher takes one block a sample only where it fits), checked here;
+// 16-byte aligned tensors, a scratch of (S + 1) B L C floats and B zeroed
+// int tickets, checked by the wrapper.
 #include <cstring>
 #include <mutex>
 #include <type_traits>
 
-#include "cell_gemm.cuh"
+#include "cell_whole.cuh"
 
 namespace {
 
@@ -98,7 +113,10 @@ constexpr int kMaxStates = kMaxSteps + 3;
 // phases: one a GEMM step, the out-conv's and the last one
 constexpr int kMaxPhases = kMaxSteps + 2;
 constexpr int kPad = 4;  // floats after each row of a state in shared memory
-enum PhaseKind { kFinal = 0, kGlu = 1, kFc = 2, kOutConv = 3 };
+enum PhaseKind { kFinal = 0, kGlu = 1, kFc = 2, kOutConv = 3, kWhole = 4 };
+// a call's design: the launcher's pick, the phases, or the whole cell in one
+// block a sample
+enum Design { kDesignAuto = 0, kDesignPhases = 1, kDesignWhole = 2 };
 
 template <typename T>
 struct CellParams {
@@ -494,18 +512,6 @@ __device__ void load_bias(const CellParams<T>& p, const FoundPhase& P,
   }
 }
 
-// v summed over the whole block (kThreads), returned to each thread; two
-// barriers of the block.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int w = 0; w < kThreads / 32; ++w) t += red[w];
-  __syncthreads();  // red is free again
-  return t;
-}
-
 // The fused phase's end, in the group's last block (all kThreads threads),
 // a sample at a time: v = o + x over the sample's whole rows (o from the
 // scratch, where every block of the group wrote its columns), its
@@ -548,6 +554,81 @@ __device__ void fused_norm(const float* o, const FoundPhase& P, char* base,
                                        (a.w - mean) * rstd * g.w + b.w));
     }
   }
+}
+
+// The whole cell of sample blockIdx.x in one block (the kWhole phase;
+// blockDim.x = 2 round32(C)): every state in shared memory in fp32, the
+// weights streamed in K-tiles of kt rows (cell_whole.cuh). A kernel of its
+// own, so that its registers and code are its own: as a path of
+// found_cell_kernel it ran 3-13% slower in bf16 on the H100. A block may
+// take an SM's registers (128 a thread at 512 threads).
+template <typename T>
+__global__ void __launch_bounds__(512, 1)
+    whole_cell_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                      T* __restrict__ out, CellParams<T> p, CellSteps cs,
+                      int kt, int L, int C, float eps) {
+  extern __shared__ __align__(128) float smem[];
+  const int LC = L * C, lc = round4(LC), S = cs.S;
+  float* zero = smem;
+  float* states = zero + lc;  // state k at states + k * lc
+  float* obuf = states + (2 + S) * lc;
+  float* stage = obuf + lc;
+  float* scores = stage + (cs.m > 2 ? cs.m : 2) * C * kRowTile;
+  float* red = scores + round4(L * L);
+  T* wbuf = reinterpret_cast<T*>(red + 32);
+
+  const size_t base = static_cast<size_t>(blockIdx.x) * LC;
+  for (int i = 4 * threadIdx.x; i < LC; i += 4 * blockDim.x) {
+    store4(zero + i, make_float4(0.f, 0.f, 0.f, 0.f));
+    store4(states + i, load4(x + base + i));
+    store4(states + lc + i, load4(y + base + i));
+  }
+  __syncthreads();
+
+  const float* srcs[kMaxStates];
+  for (int s = 0; s < S; ++s) {
+    srcs[0] = cs.src_x[s] < 0 ? zero : states + cs.src_x[s] * lc;
+    srcs[1] = cs.src_y[s] < 0 ? zero : states + cs.src_y[s] * lc;
+    float* dst = states + (2 + s) * lc;
+    switch (cs.branch[s]) {
+      case 0:
+        for (int i = 4 * threadIdx.x; i < LC; i += 4 * blockDim.x) {
+          const float4 a = load4(srcs[0] + i), b = load4(srcs[1] + i);
+          store4(dst + i, make_float4(a.x + b.x, a.y + b.y, a.z + b.z,
+                                      a.w + b.w));
+        }
+        break;
+      case 1:
+        attention(srcs[0], srcs[1], dst, scores, L, C);
+        layer_norm(dst, LC, p.ln1_s + s * LC, p.ln1_b + s * LC, eps, red, dst);
+        break;
+      case 2:
+        dense_step<T, true>(stage, srcs, 2,
+                            p.glu_w + static_cast<size_t>(s) * 4 * C * C,
+                            p.glu_b + s * 2 * C, L, C, dst, wbuf, kt);
+        break;
+      default:
+        dense_step<T, false>(stage, srcs, 2,
+                             p.cfc_w + static_cast<size_t>(s) * 2 * C * C,
+                             p.cfc_b + s * C, L, C, dst, wbuf, kt);
+        break;
+    }
+    __syncthreads();
+  }
+
+  const float* o = states + (1 + S) * lc;
+  if (cs.m != 1) {
+    for (int k = 0; k < cs.m; ++k) srcs[k] = states + (2 + S - cs.m + k) * lc;
+    dense_step<T, false>(stage, srcs, cs.m, p.oc_w, p.oc_b, L, C, obuf, wbuf,
+                         kt);
+    o = obuf;
+  }
+  for (int i = 4 * threadIdx.x; i < LC; i += 4 * blockDim.x) {
+    const float4 a = load4(o + i), b = load4(states + i);
+    store4(obuf + i, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
+  }
+  __syncthreads();
+  layer_norm(obuf, LC, p.ln2_s, p.ln2_b, eps, red, out + base);
 }
 
 // One phase of the cell (P); blockIdx.x = group * tiles + tile.
@@ -786,21 +867,66 @@ GemmGeom final_geom(int B) {
   return g;
 }
 
-// The kernel may take every byte of shared memory a block can have; the
+// The kernels may take every byte of shared memory a block can have; the
 // occupancy calculator then sees each geometry's real share.
 template <typename T>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(found_cell_kernel<T>,
+  const cudaError_t err = cudaFuncSetAttribute(
+      found_cell_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemLimit);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(whole_cell_kernel<T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               kSmemLimit);
 }
 
-// The whole plan with every phase's geometry; S_req / nt_req fix the GEMM
-// phases' samples and columns a block (0: the launcher picks). Returns the
-// number of phases, or 0 if a phase fits no geometry.
+// The launcher's design for a cell of B samples (the note at the top): true
+// for the whole cell in one block a sample, false for the phases.
+bool whole_first(const CellSteps& cs, int B) {
+  bool gemm = cs.m != 1, attn = false;
+  for (int s = 0; s < cs.S; ++s) {
+    gemm = gemm || cs.branch[s] >= 2;
+    attn = attn || cs.branch[s] == 1;
+  }
+  return gemm ? 2 * B >= sm_count() : !attn;
+}
+
+// The one phase of the whole cell in one block a sample: 2 round32(C)
+// threads, the deepest weight K-tile of 32, 16 or 8 rows that fits. False
+// if none does.
+template <typename T>
+bool whole_phase(const CellSteps& cs, int B, int L, int C, FoundPhase* P) {
+  bool glu = false;
+  for (int s = 0; s < cs.S; ++s) glu = glu || cs.branch[s] == 2;
+  *P = FoundPhase{};
+  P->kind = kWhole;
+  P->g = final_geom(B);
+  P->g.kt = 32;
+  while (P->g.kt > 8 && whole_smem_bytes(L, C, cs.S, cs.m, glu, sizeof(T),
+                                         P->g.kt) > kSmemLimit)
+    P->g.kt >>= 1;
+  P->smem = whole_smem_bytes(L, C, cs.S, cs.m, glu, sizeof(T), P->g.kt);
+  if (P->smem > static_cast<size_t>(kSmemLimit)) return false;
+  P->threads = 2 * ((C + 31) / 32 * 32);  // two row halves a column
+  P->blocks = B;
+  P->occ = blocks_per_sm(whole_cell_kernel<T>, P->threads, P->smem);
+  return true;
+}
+
+// The whole plan with every phase's geometry. design: kDesignAuto lets the
+// launcher pick (whole_first) unless S_req or nt_req fix the GEMM phases'
+// samples and columns a block (0: the launcher picks them); then, as with
+// kDesignPhases, the cell runs as phases. Returns the number of phases, or
+// 0 if a phase fits no geometry.
 template <typename T>
 int plan(const CellSteps& cs, int B, int L, int C, int S_req, int nt_req,
-         FoundPhase* ph) {
+         int design, FoundPhase* ph) {
+  if (design == kDesignWhole ||
+      (design == kDesignAuto && S_req == 0 && nt_req == 0 &&
+       whole_first(cs, B))) {
+    if (whole_phase<T>(cs, B, L, C, ph)) return 1;
+    if (design == kDesignWhole) return 0;
+  }
   const int n = plan_phases(cs, ph), sz = sizeof(T);
   for (int i = 0; i < n; ++i) {
     FoundPhase& P = ph[i];
@@ -829,18 +955,22 @@ int plan(const CellSteps& cs, int B, int L, int C, int S_req, int nt_req,
 }
 
 // The plans of recent calls. Picking a GEMM phase's geometry asks the
-// occupancy calculator once a candidate, up to 24 times a phase: more host
-// time than the launches, so a call that repeats one of these reuses its
-// plan. The key holds ints only (no padding), compared as bytes.
+// occupancy calculator once a candidate, up to 24 times a phase: on the
+// H100 a phased plan made anew took 20-58 us of host time against calls of
+// about 0.1 ms (chip_smoke.py phase 3, plan_us), so a call that repeats
+// one of these reuses its plan, and the kernels' shared-memory limit set
+// when it was made. The key holds ints only (no padding), compared as
+// bytes. Returns the number of phases, 0 if a phase fits no geometry, or
+// minus the CUDA error of setting the limit.
 struct PlanKey {
-  int device, B, L, C, S_req, nt_req;
+  int device, B, L, C, S_req, nt_req, design;
   CellSteps cs;
 };
 constexpr int kPlanCache = 16;
 
 template <typename T>
 int cached_plan(const CellSteps& cs, int B, int L, int C, int S_req,
-                int nt_req, FoundPhase* ph) {
+                int nt_req, int design, FoundPhase* ph) {
   struct Entry {
     PlanKey key;
     int n;
@@ -857,6 +987,7 @@ int cached_plan(const CellSteps& cs, int B, int L, int C, int S_req,
   key.C = C;
   key.S_req = S_req;
   key.nt_req = nt_req;
+  key.design = design;
   key.cs = cs;
   std::lock_guard<std::mutex> lock(mu);
   for (const Entry& e : cache) {
@@ -865,7 +996,9 @@ int cached_plan(const CellSteps& cs, int B, int L, int C, int S_req,
       return e.n;
     }
   }
-  const int n = plan<T>(cs, B, L, C, S_req, nt_req, ph);
+  const cudaError_t attr = allow_smem<T>();
+  if (attr != cudaSuccess) return -static_cast<int>(attr);
+  const int n = plan<T>(cs, B, L, C, S_req, nt_req, design, ph);
   if (n > 0) {
     Entry& e = cache[next];
     next = (next + 1) % kPlanCache;
@@ -880,7 +1013,7 @@ template <typename T>
 int launch(const void* x, const void* y, void* out, float* scratch,
            int* tickets, int B, int L, int C, const CellSteps& cs,
            const void* const* params, float eps, int S_req, int nt_req,
-           cudaStream_t stream) {
+           int design, cudaStream_t stream) {
   CellParams<T> p;
   const T* const* t = reinterpret_cast<const T* const*>(params);
   p.ln1_s = t[0];
@@ -893,16 +1026,20 @@ int launch(const void* x, const void* y, void* out, float* scratch,
   p.oc_b = t[7];
   p.ln2_s = t[8];
   p.ln2_b = t[9];
-  const cudaError_t attr = allow_smem<T>();
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   FoundPhase ph[kMaxPhases];
-  const int n = cached_plan<T>(cs, B, L, C, S_req, nt_req, ph);
+  const int n = cached_plan<T>(cs, B, L, C, S_req, nt_req, design, ph);
+  if (n < 0) return -n;
   if (n == 0) return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < n; ++i) {
     const FoundPhase& P = ph[i];
-    found_cell_kernel<T><<<P.blocks, P.threads, P.smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(y),
-        static_cast<T*>(out), scratch, tickets, p, cs, P, B, L, C, eps);
+    if (P.kind == kWhole)
+      whole_cell_kernel<T><<<P.blocks, P.threads, P.smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(y),
+          static_cast<T*>(out), p, cs, P.g.kt, L, C, eps);
+    else
+      found_cell_kernel<T><<<P.blocks, P.threads, P.smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(y),
+          static_cast<T*>(out), scratch, tickets, p, cs, P, B, L, C, eps);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -927,10 +1064,11 @@ bool read_steps(int S, int m, const int* branch, const int* src_x,
   return true;
 }
 
-bool valid_call(int B, int L, int C, int S_req, int nt_req) {
+bool valid_call(int B, int L, int C, int S_req, int nt_req, int design) {
   return B >= 1 && L >= 1 && C % 8 == 0 && C >= 8 && C <= 256 &&
          S_req >= 0 && S_req <= kMaxSamples && (S_req & (S_req - 1)) == 0 &&
-         (nt_req == 0 || nt_req == 16 || nt_req == 32);
+         (nt_req == 0 || nt_req == 16 || nt_req == 32) &&
+         design >= kDesignAuto && design <= kDesignWhole;
 }
 
 constexpr int kGeomFields = 11;
@@ -967,18 +1105,18 @@ size_t found_cell_smem_bytes(int L, int C, int S, int m, const int* branch,
 }
 
 // The geometry a call would take, kGeomFields ints a phase in geom: kind
-// (0 the last phase, 1 GLU, 2 ConcatFC, 3 out-conv), step, samples a block,
-// columns a block, weight rows a K-tile, K-tiles in shared memory at once,
-// blocks, threads, blocks an SM, bytes of shared memory, 1 if the phase
-// ends the cell (its group's last block adds x and normalizes); the number of
-// phases in *nphases. Returns 0, or cudaErrorInvalidValue if the call is
-// not one the kernel hosts.
+// (0 the last phase, 1 GLU, 2 ConcatFC, 3 out-conv, 4 the whole cell in one
+// block a sample), step, samples a block, columns a block, weight rows a
+// K-tile, K-tiles in shared memory at once, blocks, threads, blocks an SM,
+// bytes of shared memory, 1 if the phase ends the cell (its group's last
+// block adds x and normalizes); the number of phases in *nphases. Returns
+// 0, or cudaErrorInvalidValue if the call is not one the kernel hosts.
 int found_cell_geometry(int B, int L, int C, int S, int m, const int* branch,
                         const int* src_x, const int* src_y, int itemsize,
-                        int samples_per_block, int cols_per_block, int* geom,
-                        int* nphases) {
+                        int samples_per_block, int cols_per_block,
+                        int design, int* geom, int* nphases) {
   CellSteps cs;
-  if (!valid_call(B, L, C, samples_per_block, cols_per_block) ||
+  if (!valid_call(B, L, C, samples_per_block, cols_per_block, design) ||
       !read_steps(S, m, branch, src_x, src_y, &cs))
     return static_cast<int>(cudaErrorInvalidValue);
   FoundPhase ph[kMaxPhases];
@@ -986,24 +1124,25 @@ int found_cell_geometry(int B, int L, int C, int S, int m, const int* branch,
   if (itemsize == 4) {
     const cudaError_t err = allow_smem<float>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    n = plan<float>(cs, B, L, C, samples_per_block, cols_per_block, ph);
+    n = plan<float>(cs, B, L, C, samples_per_block, cols_per_block, design,
+                    ph);
   } else if (itemsize == 2) {
     const cudaError_t err = allow_smem<__nv_bfloat16>();
     if (err != cudaSuccess) return static_cast<int>(err);
     n = plan<__nv_bfloat16>(cs, B, L, C, samples_per_block, cols_per_block,
-                            ph);
+                            design, ph);
   }
   if (n == 0) return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < n; ++i) {
     const FoundPhase& P = ph[i];
-    const bool gemm = P.kind != kFinal;
+    const bool gemm = P.kind != kFinal && P.kind != kWhole;
     int* o = geom + i * kGeomFields;
     o[0] = P.kind;
-    o[1] = gemm && P.kind != kOutConv ? P.step : -1;
+    o[1] = P.kind == kGlu || P.kind == kFc ? P.step : -1;
     o[2] = P.g.S;
     o[3] = gemm ? P.g.nt : C;
-    o[4] = gemm ? P.g.kt : 0;
-    o[5] = gemm ? P.g.slots : 0;
+    o[4] = gemm || P.kind == kWhole ? P.g.kt : 0;
+    o[5] = gemm ? P.g.slots : P.kind == kWhole ? 2 : 0;
     o[6] = P.blocks;
     o[7] = P.threads;
     o[8] = P.occ;
@@ -1025,18 +1164,19 @@ const char* found_cell_error_string(int code) {
 // device pointers in CellParams order (oc_w, oc_b may be null when m == 1).
 // branch/src_x/src_y are host arrays of S entries (a source -1 for a 'none'
 // edge). samples_per_block (1, 2 or 4) and cols_per_block (16 or 32) fix
-// the GEMM phases' geometry; 0 lets the launcher pick. Launches one kernel
-// a phase on `stream`; returns the CUDA error code of the launches (0 on
-// success).
+// the GEMM phases' geometry; 0 lets the launcher pick. design: 0 the
+// launcher's pick, 1 the phases, 2 the whole cell in one block a sample
+// (which takes neither scratch nor tickets). Launches one kernel a phase on
+// `stream`; returns the CUDA error code of the launches (0 on success).
 int found_cell_forward(int dtype, const void* x, const void* y, void* out,
                        void* scratch, void* tickets, int B, int L, int C,
                        int S, int m,
                        const int* branch, const int* src_x, const int* src_y,
                        const void* const* params, float eps,
-                       int samples_per_block, int cols_per_block,
+                       int samples_per_block, int cols_per_block, int design,
                        void* stream) {
   CellSteps cs;
-  if (!valid_call(B, L, C, samples_per_block, cols_per_block) ||
+  if (!valid_call(B, L, C, samples_per_block, cols_per_block, design) ||
       !read_steps(S, m, branch, src_x, src_y, &cs))
     return static_cast<int>(cudaErrorInvalidValue);
   float* sc = static_cast<float*>(scratch);
@@ -1044,10 +1184,11 @@ int found_cell_forward(int dtype, const void* x, const void* y, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(x, y, out, sc, tk, B, L, C, cs, params, eps,
-                         samples_per_block, cols_per_block, st);
+                         samples_per_block, cols_per_block, design, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, y, out, sc, tk, B, L, C, cs, params, eps,
-                                 samples_per_block, cols_per_block, st);
+                                 samples_per_block, cols_per_block, design,
+                                 st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -285,22 +285,28 @@ def _check_tickets(tickets: torch.Tensor, x: torch.Tensor):
                          "contiguous ints at least")
 
 
-# the tickets of each (device, stream): calls on one stream take turns, and
-# each call leaves them at 0, so one buffer serves every call on the stream
-_TICKETS: dict = {}
-_TICKETS_LOCK = threading.Lock()
+# the tickets and the scratch of each (device, stream): calls on one stream
+# take turns, each call leaves the tickets at 0 and writes each scratch
+# element before it reads it, so one pair serves every call on the stream
+_STREAM_BUFFERS: dict = {}
+_STREAM_BUFFERS_LOCK = threading.Lock()
 
 
-def _stream_tickets(x: torch.Tensor, stream: int) -> torch.Tensor:
-    """The zeroed tickets of x's device and this stream, at least B."""
+def _stream_buffers(x: torch.Tensor, stream: int, S: int):
+    """The zeroed tickets (at least B) and the scratch (exactly
+    ``found_cell_scratch_numel`` elements) of x's device and this
+    stream."""
+    B, L, C = x.shape
+    n = found_cell_scratch_numel(B, L, C, S)
     key = (x.device, stream)
-    with _TICKETS_LOCK:
-        t = _TICKETS.get(key)
-        if t is None or t.numel() < x.shape[0]:
-            t = _TICKETS[key] = torch.zeros(max(x.shape[0], 128),
-                                            dtype=torch.int32,
-                                            device=x.device)
-        return t
+    with _STREAM_BUFFERS_LOCK:
+        t, s = _STREAM_BUFFERS.get(key, (None, None))
+        if t is None or t.numel() < B:
+            t = torch.zeros(max(B, 128), dtype=torch.int32, device=x.device)
+        if s is None or s.numel() < n:
+            s = torch.empty(n, dtype=torch.float32, device=x.device)
+        _STREAM_BUFFERS[key] = (t, s)
+    return t, s[:n]
 
 
 def _check(x, y, p: FoundCellParams, steps_cfg: StepsCfg, multiplier: int,
@@ -356,12 +362,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.found_cell_forward.argtypes = [
         ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, pi, pi, pi,
-        ctypes.POINTER(vp), ctypes.c_float, ci, ci, vp]
+        ctypes.POINTER(vp), ctypes.c_float, ci, ci, ci, vp]
     lib.found_cell_forward.restype = ci
     lib.found_cell_smem_bytes.argtypes = [ci, ci, ci, ci, pi, pi, pi, ci]
     lib.found_cell_smem_bytes.restype = ctypes.c_size_t
     lib.found_cell_geometry.argtypes = [ci, ci, ci, ci, ci, pi, pi, pi, ci,
-                                        ci, ci, pi, pi]
+                                        ci, ci, ci, pi, pi]
     lib.found_cell_geometry.restype = ci
     lib.found_cell_error_string.argtypes = [ci]
     lib.found_cell_error_string.restype = ctypes.c_char_p
@@ -378,7 +384,10 @@ def _steps_arrays(steps_cfg: StepsCfg):
             ints([iy if sy else -1 for _, _, (sy, iy) in steps_cfg]))
 
 
-FOUND_PHASE_KINDS = ("final", "glu", "fc", "out_conv")
+FOUND_PHASE_KINDS = ("final", "glu", "fc", "out_conv", "whole")
+# a call's design (``Design`` in csrc/found_cell.cu): the launcher's pick,
+# the phases, or the whole cell in one block a sample
+FOUND_DESIGNS = {"auto": 0, "phases": 1, "whole": 2}
 _GEOM_FIELDS = ("kind", "step", "samples_per_block", "cols_per_block",
                 "k_tile", "k_tiles_resident", "blocks", "threads",
                 "blocks_per_sm", "smem_bytes", "fused")
@@ -386,28 +395,30 @@ _GEOM_FIELDS = ("kind", "step", "samples_per_block", "cols_per_block",
 
 def found_cell_geometry(lib: ctypes.CDLL, B: int, L: int, C: int,
                         steps_cfg: StepsCfg, multiplier: int, itemsize: int,
-                        samples_per_block: int = 0, cols_per_block: int = 0
-                        ) -> list:
+                        samples_per_block: int = 0, cols_per_block: int = 0,
+                        design: str = "auto") -> list:
     """The launches ``found_cell_forward`` makes for a call, one dict a
-    phase: its kind ('glu', 'fc', 'out_conv', 'final') and GEMM step (-1
-    for none), samples and output columns a block (the last phase: one
-    sample and all C columns), weight rows a K-tile and K-tiles in shared
-    memory at once (0 without a GEMM), blocks, threads, blocks an SM holds,
-    bytes of shared memory a block, and whether the phase ends the cell
-    (``fused``: its group's last block adds x and normalizes). 0 lets the
-    launcher pick the GEMM phases' samples and columns, as the wrapper
-    does."""
+    phase: its kind ('glu', 'fc', 'out_conv', 'final', or 'whole': the
+    whole cell in one block a sample) and GEMM step (-1 for none), samples
+    and output columns a block (the last phase and 'whole': one sample and
+    all C columns), weight rows a K-tile and K-tiles in shared memory at
+    once (0 without a GEMM; 'whole' streams its weights through two),
+    blocks, threads, blocks an SM holds, bytes of shared memory a block,
+    and whether the phase ends the cell (``fused``: its group's last block
+    adds x and normalizes). 0 and ``design`` 'auto' let the launcher pick,
+    as the wrapper does; ``design`` 'phases' or 'whole' fixes the
+    design."""
     n = len(_GEOM_FIELDS)
     geom = (ctypes.c_int * (n * (MAX_STEPS + 2)))()
     count = ctypes.c_int(0)
     rc = lib.found_cell_geometry(
         B, L, C, len(steps_cfg), multiplier, *_steps_arrays(steps_cfg),
-        itemsize, samples_per_block, cols_per_block, geom,
-        ctypes.byref(count))
+        itemsize, samples_per_block, cols_per_block, FOUND_DESIGNS[design],
+        geom, ctypes.byref(count))
     if rc != 0:
         raise ValueError(f"found_cell: no geometry hosts B={B}, L={L}, "
                          f"C={C}, S={samples_per_block}, "
-                         f"nt={cols_per_block}")
+                         f"nt={cols_per_block}, design={design}")
     out = []
     for i in range(count.value):
         d = dict(zip(_GEOM_FIELDS, geom[i * n:(i + 1) * n]))
@@ -421,7 +432,8 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
            eps: float, stream: Optional[int],
            scratch: Optional[torch.Tensor] = None,
            samples_per_block: int = 0, cols_per_block: int = 0,
-           tickets: Optional[torch.Tensor] = None) -> torch.Tensor:
+           tickets: Optional[torch.Tensor] = None,
+           design: str = "auto") -> torch.Tensor:
     """Call ``found_cell_forward`` of a bound library on checked tensors
     and return the output; raises if a launch returns an error. ``scratch``
     holds the intermediate states (``found_cell_scratch_numel`` fp32
@@ -429,7 +441,8 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
     zeros on x's device that the call leaves at zero (allocated here when
     None; the wrapper keeps one buffer a stream).
     ``samples_per_block`` (1, 2 or 4) and ``cols_per_block`` (16 or 32) fix
-    the GEMM phases' geometry; 0 lets the launcher pick from B."""
+    the GEMM phases' geometry; 0 lets the launcher pick from B. ``design``
+    ('auto', 'phases' or 'whole') as in ``found_cell_geometry``."""
     B, L, C = x.shape
     S = len(steps_cfg)
     reason = _size_blocker(L, C, steps_cfg, multiplier)
@@ -451,7 +464,7 @@ def launch(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor,
         dtype_code, x.data_ptr(), y.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), tickets.data_ptr(), B, L, C, S, multiplier,
         *_steps_arrays(steps_cfg), ptrs, float(eps), samples_per_block,
-        cols_per_block, stream)
+        cols_per_block, FOUND_DESIGNS[design], stream)
     if rc != 0:
         raise RuntimeError("found_cell kernel launch failed: "
                            + lib.found_cell_error_string(rc).decode())
@@ -475,9 +488,9 @@ def found_node_cell_fused(x: torch.Tensor, y: torch.Tensor,
     from bmnas_tpu_torch.ops.kernels import _build
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        tickets, scratch = _stream_buffers(x, stream, len(steps_cfg))
         out = launch(_build.load("found_cell", bind), x, y, p, steps_cfg,
-                     multiplier, eps, stream,
-                     tickets=_stream_tickets(x, stream))
+                     multiplier, eps, stream, scratch, tickets=tickets)
     LAUNCHES["found_cell"] += 1
     return out
 

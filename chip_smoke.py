@@ -16,22 +16,24 @@ line) on any error:
    steps, multiplier 2, so the out-conv runs) at L=8, C=128, B in {2, 8,
    96}, in fp32 (tolerance 1e-4 abs + 1e-4 rel) and bf16 (2e-2 abs
    + 2e-2 rel; both sides round the same fp32 result to bf16 once). Times
-   (CUDA events, median, L2 flushed before each launch) at B=8 and B=96:
-   device time (``ms``, host dispatch hidden behind a sleep kernel) and
-   call time (``call_ms``, host dispatch included), for the kernel and the
-   plain version, beside each configuration's bound (the larger of bytes /
-   3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic type)
-   and its tensor-core bound (the FLOP at the dense TF32 or bf16 rate).
-   Every call is made twice on the same input: the two outputs must be
-   equal bit for bit, and each wrapper call counts one launch whatever the
-   cell's phases. For LinearGLU, ConcatFC and the four NTU cells at B=8 and
-   B=96: each phase's device time from one ``torch.profiler`` trace of a
-   call, beside the geometry the launcher picked for it. Then the cells of
-   ``FOUND_SWEPT`` (fp32) under every geometry the launcher could take,
-   and as copies of the kernel with its products, its weight stream or
-   both taken out, and with the GEMM code taken out (timed on the Sum and
-   ScaleDotAttn cells too; ``FOUND_ABLATIONS``): what a removal saves is
-   what that part costs.
+   (CUDA events, median, L2 flushed before each launch) at B=8, 37 and
+   96: device time (``ms``, host dispatch hidden behind a sleep kernel)
+   and call time (``call_ms``, host dispatch included), for the kernel and
+   the plain version, beside each configuration's bound (the larger of
+   bytes / 3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic
+   type) and its tensor-core bound (the FLOP at the dense TF32 or bf16
+   rate). The launcher picks one of two designs (``design``): the cell as
+   phases, one launch each, or the whole cell in one block a sample; the
+   design it did not pick is checked against the plain version too and
+   timed (``alt_ms``). ``call_ms_replan``: the call time when the launcher
+   plans the call anew (``found_cell_geometry`` before the call), which a
+   call without the plan cache of ``csrc/found_cell.cu`` would pay, and
+   ``plan_us`` that planning's host time alone. Every call is made twice
+   on the same input: the two outputs must be equal bit for bit, and each
+   wrapper call counts one launch whatever the cell's phases. For
+   LinearGLU, ConcatFC and the four NTU cells at the timed batches: each
+   phase's device time from one ``torch.profiler`` trace of a call, beside
+   the geometry the launcher picked for it.
 4. node_mixed vs plain: the supernet's mixed-op kernel against its plain
    version at L=16, C=192, B in {5, 8, 37, 96}, and at the NTU search
    width, L=8, C=128, B=96, fp32 and bf16 (the same tolerances), with
@@ -331,41 +333,6 @@ def time_ms(fn, flush, hide_host, iters=30, warmup=3):
 # the cells whose phases phase 3 traces one by one
 PHASE_TRACED = [("Sum",), ("ScaleDotAttn",), ("LinearGLU",),
                 ("ConcatFC",)] + [ops for _, _, ops in NTU_KERNEL_CONFIGS]
-# (L, C, B, inner ops, multiplier) that phase 3 times under every geometry
-# the launcher could take and as ablated copies of the kernel
-FOUND_SWEPT = [
-    (L, C, 8, ("LinearGLU",), 1),
-    (L, C, 96, ("LinearGLU",), 1),
-    (L, C, 96, ("LinearGLU", "LinearGLU"), 2),
-    (NTU_L, NTU_C, 96, ("LinearGLU", "LinearGLU"), 2),
-    (NTU_L, NTU_C, 96, ("ScaleDotAttn", "ConcatFC"), 2),
-    (NTU_L, NTU_C, 96, ("Sum", "ScaleDotAttn"), 2),
-]
-# copies of csrc/found_cell.cu and its headers with one part of the work
-# taken out (file, text, replacement), as ATTN_ABLATIONS; their outputs are
-# wrong by design and not checked
-FOUND_ABLATIONS = {
-    "products": [("cell_gemm.cuh", "      Step::mma(acc[0], a, b);\n", ""),
-                 ("cell_gemm.cuh", "        Step::mma(acc[1], a, b);\n",
-                  "")],
-    "weight stream": [(
-        "cell_gemm.cuh",
-        "      cp_async16(d, c.src + static_cast<size_t>(k0 + r) * "
-        "c.stride);", "      ;")],
-}
-FOUND_ABLATIONS["products and weights"] = (
-    FOUND_ABLATIONS["products"] + FOUND_ABLATIONS["weight stream"])
-# the GEMM warps' whole path taken out of the kernel (the compiler drops
-# the GEMM code): what a phase without a GEMM pays for the kernel's size
-FOUND_ABLATIONS["GEMM code"] = [(
-    "found_cell.cu", "  if (gemm && threadIdx.x < kGemmThreads) {",
-    "  if (false) {")]
-# cells timed as the ablated copies besides FOUND_SWEPT: the cells of one
-# phase without a GEMM
-FOUND_ABLATED = FOUND_SWEPT + [(L, C, 8, ("Sum",), 1),
-                               (L, C, 8, ("ScaleDotAttn",), 1)]
-
-
 def kernel_times_us(fn):
     """(name, device µs) of each kernel one call of ``fn`` launches, in
     launch order, from one ``torch.profiler`` trace (after one warm call)."""
@@ -399,108 +366,6 @@ def phase_rows(geometry, fn):
     return [dict(g, us=t) for g, t in zip(geometry, times)]
 
 
-def found_cell_sweep(device):
-    """Each cell of ``FOUND_SWEPT`` in fp32 under every (samples, columns)
-    a block that fits its GEMM phases (the launcher's pick marked), then
-    each cell of ``FOUND_ABLATED`` under the launcher's geometry as each
-    copy of ``FOUND_ABLATIONS`` (built together, one nvcc each): CUDA
-    events, median, L2 flushed."""
-    import ctypes
-    from bmnas_tpu_torch.ops.kernels import _build
-    from bmnas_tpu_torch.ops.kernels.node_mixed import (
-        bind,
-        found_cell_geometry,
-        found_cell_scratch_numel,
-        found_cell_steps_cfg,
-        launch,
-    )
-    root = os.path.join(_build.BUILD_DIR, "found_ablation")
-    procs = {}
-    for name, subs in FOUND_ABLATIONS.items():
-        d = os.path.join(root, name.replace(" ", "_"))
-        os.makedirs(d, exist_ok=True)
-        for fname in ("found_cell.cu", "cell_gemm.cuh", "tc_gemm.cuh",
-                      "cell_common.cuh"):
-            with open(os.path.join(_build.CSRC, fname)) as f:
-                text = f.read()
-            for target, old, new in subs:
-                if target == fname:
-                    if old not in text:
-                        raise AssertionError(f"ablation {name!r}: text not "
-                                             f"found in {fname}")
-                    text = text.replace(old, new)
-            with open(os.path.join(d, fname), "w") as f:
-                f.write(text)
-        procs[name] = (d, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             os.path.join(d, "lib.so"), os.path.join(d, "found_cell.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    lib = _build.load("found_cell", bind)
-    gen = torch.Generator().manual_seed(9)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    cases, rows = [], []
-    for Ll, Cc, B, ops, m in FOUND_ABLATED:
-        cfg = found_cell_steps_cfg(chain_edges(len(ops)), ops)
-        p = random_params(gen, len(ops), m, torch.float32, device, Ll, Cc)
-        x = torch.randn(B, Ll, Cc, generator=gen).to(device)
-        y = torch.randn(B, Ll, Cc, generator=gen).to(device)
-        scratch = torch.empty(found_cell_scratch_numel(B, Ll, Cc, len(ops)),
-                              device=device)
-        tickets = torch.zeros(B, dtype=torch.int32, device=device)
-        pick = found_cell_geometry(lib, B, Ll, Cc, cfg, m, 4)
-        cases.append((Ll, Cc, B, ops, m, cfg, p, x, y, scratch, tickets))
-        if (Ll, Cc, B, ops, m) not in FOUND_SWEPT:
-            continue
-        for S in (1, 2, 4):
-            for nt in (16, 32):
-                try:
-                    geom = found_cell_geometry(lib, B, Ll, Cc, cfg, m, 4, S,
-                                               nt)
-                except ValueError:
-                    continue
-
-                def run(S=S, nt=nt):
-                    return launch(lib, x, y, p, cfg, m, 1e-5, stream,
-                                  scratch, S, nt, tickets)
-                picked = geom == pick
-                row = {"ops": "+".join(ops), "L": Ll, "C": Cc, "B": B,
-                       "S": S, "nt": nt, "picked": picked,
-                       "blocks": [g["blocks"] for g in geom],
-                       "ms": time_ms(run, flush, True)}
-                rows.append(row)
-                log("  found_cell sweep {ops:<24} L={L:<2} C={C:<3} "
-                    "B={B:<3} S={S} nt={nt:<2} blocks={blocks} "
-                    "ms={ms:.4f}".format(**row)
-                    + (" (the launcher's pick)" if picked else ""))
-    libs = {"none (the kernel)": lib}
-    for name, (d, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise AssertionError(f"ablation {name!r} did not build:\n{out}")
-        libs[name] = bind(ctypes.CDLL(os.path.join(d, "lib.so")))
-    ablation = []
-    for Ll, Cc, B, ops, m, cfg, p, x, y, scratch, tickets in cases:
-        full = None
-        gemm = m != 1 or any(op in ("LinearGLU", "ConcatFC") for op in ops)
-        for name, alib in libs.items():
-            if gemm and name == "GEMM code":
-                continue  # its GEMM phases would not run
-
-            def run(alib=alib):
-                return launch(alib, x, y, p, cfg, m, 1e-5, stream, scratch,
-                              0, 0, tickets)
-            ms = time_ms(run, flush, True)
-            full = ms if full is None else full
-            ablation.append({"ops": "+".join(ops), "L": Ll, "C": Cc, "B": B,
-                             "removed": name, "ms": ms,
-                             "saved_ms": full - ms})
-            log(f"  found_cell ablation {'+'.join(ops):<24} L={Ll:<2} "
-                f"C={Cc:<3} B={B:<3} removed {name:<20} ms={ms:.4f} "
-                f"saved_ms={full - ms:.4f}")
-    return rows, ablation
-
-
 def kernel_phase(device):
     """The MM-IMDB width (``CONFIGS`` at L=16, C=192, B in 8/37/96), then
     the NTU serving width (``NTU_KERNEL_CONFIGS`` at L=8, C=128, B in
@@ -518,19 +383,47 @@ def kernel_phase(device):
     return rows
 
 
+def plan_us(lib, B, Ll, Cc, cfg, m, itemsize, n=200):
+    """Host µs of the launcher's plan of a call made anew (the C function
+    ``found_cell_geometry``, called through ctypes), mean of n."""
+    import ctypes
+    from bmnas_tpu_torch.ops.kernels.node_mixed import _steps_arrays
+    arrays = _steps_arrays(cfg)
+    geom, count = (ctypes.c_int * 128)(), ctypes.c_int(0)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        rc = lib.found_cell_geometry(B, Ll, Cc, len(cfg), m, *arrays,
+                                     itemsize, 0, 0, 0, geom,
+                                     ctypes.byref(count))
+    if rc != 0:
+        raise AssertionError(f"found_cell_geometry returned {rc}")
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def within(got, want, tol):
+    """(max abs error, all finite and within tol abs + tol rel)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    return float(err.max()), bool(torch.isfinite(g).all()) and bool(
+        (err <= tol + tol * w.abs()).all())
+
+
 def cell_cases(gen, flush, device, node_steps, m, ops, Ll, Cc, batches):
     """One cell configuration against its plain version in fp32 and bf16 at
-    each B of ``batches``, timed at B=8 and B=96."""
+    each B of ``batches``, in both designs, timed at B=8, 37 and 96."""
     from bmnas_tpu_torch.ops.kernels import LAUNCHES, _build
     from bmnas_tpu_torch.ops.kernels.node_mixed import (
         bind,
         found_cell_geometry,
+        found_cell_scratch_numel,
         found_cell_steps_cfg,
         found_node_cell_fused,
         found_node_cell_reference,
+        launch,
     )
     rows = []
     lib = _build.load("found_cell", bind)
+    stream = torch.cuda.current_stream(device).cuda_stream
     cfg = found_cell_steps_cfg(chain_edges(node_steps), ops)
     for dtype in (torch.float32, torch.bfloat16):
         p = random_params(gen, node_steps, m, dtype, device, Ll, Cc)
@@ -543,28 +436,45 @@ def cell_cases(gen, flush, device, node_steps, m, ops, Ll, Cc, batches):
             launched = LAUNCHES["found_cell"] - before
             repeat = torch.equal(got, found_node_cell_fused(x, y, p, cfg, m))
             want = found_node_cell_reference(x, y, p, cfg, m)
-            g, w = got.float(), want.float()
-            err = (g - w).abs()
             tol = TOLS[dtype]
-            ok = bool(torch.isfinite(g).all()) and bool(
-                (err <= tol + tol * w.abs()).all())
+            err, ok = within(got, want, tol)
             geometry = found_cell_geometry(lib, B, Ll, Cc, cfg, m,
                                            x.element_size())
+            design = ("whole" if [g["kind"] for g in geometry] == ["whole"]
+                      else "phases")
+            alt = "phases" if design == "whole" else "whole"
+            scratch = torch.empty(
+                found_cell_scratch_numel(B, Ll, Cc, node_steps),
+                device=device)
+            tickets = torch.zeros(B, dtype=torch.int32, device=device)
+            alt_fn = lambda: launch(  # noqa: E731
+                lib, x, y, p, cfg, m, 1e-5, stream, scratch, 0, 0, tickets,
+                design=alt)
+            alt_err, alt_ok = within(alt_fn(), want, tol)
             row = {"ops": "+".join(ops), "node_steps": node_steps,
                    "m": m, "L": Ll, "C": Cc, "B": B,
                    "dtype": str(dtype).split(".")[-1],
                    "launches": launched, "phases": len(geometry),
-                   "bitwise_repeat": repeat,
-                   "max_abs_err": float(err.max()),
-                   "tolerance": tol, "ok": ok}
-            if B in (8, 96):
+                   "design": design, "bitwise_repeat": repeat,
+                   "max_abs_err": err, "tolerance": tol, "ok": ok,
+                   "alt_design": alt, "alt_max_abs_err": alt_err,
+                   "alt_ok": alt_ok}
+            if B in (8, 37, 96):
                 kern = lambda: found_node_cell_fused(  # noqa: E731
                     x, y, p, cfg, m)
                 plain = lambda: found_node_cell_reference(  # noqa: E731
                     x, y, p, cfg, m)
+                itemsize = x.element_size()
+
+                def replan():
+                    plan_us(lib, B, Ll, Cc, cfg, m, itemsize, n=1)
+                    return kern()
                 row["ms"] = time_ms(kern, flush, True)
+                row["alt_ms"] = time_ms(alt_fn, flush, True)
                 row["plain_ms"] = time_ms(plain, flush, True)
                 row["call_ms"] = time_ms(kern, flush, False)
+                row["call_ms_replan"] = time_ms(replan, flush, False)
+                row["plan_us"] = plan_us(lib, B, Ll, Cc, cfg, m, itemsize)
                 row["plain_call_ms"] = time_ms(plain, flush, False)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     B, cfg, m, x.element_size(), Ll, Cc)
@@ -575,11 +485,14 @@ def cell_cases(gen, flush, device, node_steps, m, ops, Ll, Cc, batches):
             rows.append(row)
             log("  found_cell {ops:<30} L={L:<2} C={C:<3} B={B:<3} "
                 "{dtype:<8} max_abs_err={max_abs_err:.3g} ok={ok} "
-                "phases={phases} bitwise_repeat={bitwise_repeat}".format(
-                    **row)
-                + ("  ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                   "bound_ms={bound_ms:.5f} tc_bound_ms={tc_bound_ms:.5f} "
+                "design={design} phases={phases} "
+                "bitwise_repeat={bitwise_repeat} {alt_design}: "
+                "max_abs_err={alt_max_abs_err:.3g} ok={alt_ok}".format(**row)
+                + ("  ms={ms:.4f} alt_ms={alt_ms:.4f} plain_ms={plain_ms:.4f}"
+                   " bound_ms={bound_ms:.5f} tc_bound_ms={tc_bound_ms:.5f} "
                    "call_ms={call_ms:.4f} "
+                   "call_ms_replan={call_ms_replan:.4f} "
+                   "plan_us={plan_us:.2f} "
                    "plain_call_ms={plain_call_ms:.4f}".format(**row)
                    if "ms" in row else ""))
             for ph in row.get("phase_times", []):
@@ -588,7 +501,7 @@ def cell_cases(gen, flush, device, node_steps, m, ops, Ll, Cc, batches):
                     "resident={k_tiles_resident:<2} blocks={blocks:<4} "
                     "threads={threads} per_sm={blocks_per_sm} "
                     "smem={smem_bytes} us={us}".format(**ph))
-            if not ok or launched != 1 or not repeat:
+            if not ok or not alt_ok or launched != 1 or not repeat:
                 raise AssertionError(f"found_cell disagrees with its "
                                      f"plain version, or with itself: {row}")
     return rows
@@ -2765,8 +2678,6 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = kernel_phase(device)
     report["found_cell"] = rows
-    report["found_cell_sweep"], report["found_cell_ablation"] = \
-        found_cell_sweep(device)
 
     log(f"[4 node_mixed vs plain] L=16 C=192, B in {MIXED_BATCHES}, "
         f"{len(MIXED_GAMMAS)} gamma kinds, x != y and x is y")

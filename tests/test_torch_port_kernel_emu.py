@@ -384,8 +384,9 @@ HEADER_STAND_INS = {
         "group_arrive": "inline void group_arrive(int id, int n) "
                         "{ emu_group_arrive(id, n); }",
     },
-    # no inline PTX: written beside the others as it is
+    # no inline PTX: written beside the others as they are
     "cell_gemm.cuh": {},
+    "cell_whole.cuh": {},
 }
 
 
@@ -400,16 +401,18 @@ def _emulated_header(src: str, stand_ins: dict) -> str:
 
 
 def _emulated_source(src: str) -> str:
-    """A kernel source with its launch syntax replaced."""
+    """A kernel source with its launch syntax replaced: each kernel's
+    shared memory and its one launch site."""
+    kernels = src.count("__global__")
     src, n = re.subn(r"extern __shared__ __align__\(\d+\) float smem\[\];",
                      "float* smem = g_smem;", src)
-    assert n == 1
+    assert n == kernels
     # kernel<T><<<grid, block, smem, stream>>>(args): the stream is dropped
     src, n = re.subn(r"(\w+_kernel<T>)<<<([^,]+,[^,]+,[^,]+),[^>]*>>>"
                      r"\((.*?)\);",
                      r"emu_launch(\2, [=]() { \1(\3); });", src,
                      flags=re.S)
-    assert n == 1
+    assert n == kernels
     assert "asm" not in src
     return '#include "cuda_runtime.h"\n' + src
 
@@ -641,11 +644,14 @@ def test_kernel_phase_plans(emu_lib, ops, m, kinds, dtype):
     last GEMM, which keeps a last phase of its own), the plan the C
     function reports equal to ``found_cell_phases``, against
     ``found_node_cell_reference`` on a NaN scratch. B=3 (the last GEMM
-    group ragged at two samples a block), L=8, C=16."""
+    group ragged at two samples a block), L=8, C=16; the phased design
+    asked for (the launcher runs a cell of Sums alone in one block a
+    sample)."""
     B, L, C = 3, 8, 16
     cfg = _chain(ops)
     itemsize = 4 if dtype == torch.float32 else 2
-    geom = tnm.found_cell_geometry(emu_lib, B, L, C, cfg, m, itemsize)
+    geom = tnm.found_cell_geometry(emu_lib, B, L, C, cfg, m, itemsize,
+                                   design="phases")
     mark = lambda ph: ph["kind"] + "*" * ph["fused"]  # noqa: E731
     assert tuple(mark(g) for g in geom) == kinds
     assert tuple(mark(p) for p in tnm.found_cell_phases(cfg, m)) == kinds
@@ -653,7 +659,7 @@ def test_kernel_phase_plans(emu_lib, ops, m, kinds, dtype):
         256 if k == "final" else 512 for k in kinds]
     gen = torch.Generator().manual_seed(len(ops) * 10 + m)
     p, x, y = _cell_inputs(gen, B, L, C, len(ops), m, dtype)
-    _compare(emu_lib, x, y, p, cfg, m)
+    _compare(emu_lib, x, y, p, cfg, m, design="phases")
 
 
 # inner edges with 'none' (zeros) in an attention and in a GEMM, read in
@@ -748,31 +754,115 @@ def test_kernel_weight_ring(emu_lib, dtype):
 
 
 @pytest.mark.parametrize("L,C,B,ops,m,picks", [
-    (16, 192, 8, ("LinearGLU",), 1, [(1, 16, 96)]),
-    (16, 192, 37, ("LinearGLU",), 1, [(2, 32, 114)]),
-    (16, 192, 96, ("LinearGLU",), 1, [(2, 32, 288)]),
-    (16, 192, 96, ("ConcatFC",), 1, [(2, 32, 288)]),
-    (16, 192, 8, ("LinearGLU", "Sum"), 1, [(1, 16, 96), (1, 192, 8)]),
-    (8, 128, 8, ("LinearGLU", "LinearGLU"), 2, [(1, 16, 64)] * 3),
-    (8, 128, 96, ("LinearGLU", "LinearGLU"), 2, [(4, 32, 96)] * 3),
-    (8, 128, 96, ("Sum", "ScaleDotAttn"), 2, [(4, 32, 96)]),
+    (16, 192, 8, ("LinearGLU",), 1, [("glu", 1, 16, 96)]),
+    (16, 192, 37, ("LinearGLU",), 1, [("glu", 2, 32, 114)]),
+    (16, 192, 96, ("LinearGLU",), 1, [("whole", 1, 192, 96)]),
+    (16, 192, 96, ("ConcatFC",), 1, [("whole", 1, 192, 96)]),
+    (16, 192, 8, ("LinearGLU", "Sum"), 1, [("glu", 1, 16, 96),
+                                           ("final", 1, 192, 8)]),
+    (8, 128, 8, ("LinearGLU", "LinearGLU"), 2,
+     [("glu", 1, 16, 64)] * 2 + [("out_conv", 1, 16, 64)]),
+    (8, 128, 96, ("LinearGLU", "LinearGLU"), 2, [("whole", 1, 128, 96)]),
+    (8, 128, 96, ("Sum", "ScaleDotAttn"), 2, [("whole", 1, 128, 96)]),
 ], ids=["mmimdb-glu-B8", "mmimdb-glu-B37", "mmimdb-glu-B96",
         "mmimdb-fc-B96", "mmimdb-glu-sum-B8", "ntu-glu-B8", "ntu-glu-B96",
         "ntu-sum-attn-B96"])
 def test_found_launcher_fills_the_card(emu_lib, L, C, B, ops, m, picks):
     """At the MM-IMDB (L=16, C=192) and NTU (L=8, C=128) widths the
-    launcher spreads each GEMM phase over the card's 132 SMs (one 512-thread
-    block an SM): one sample and 16 columns a block at B=8 (96 and 64
-    blocks), two samples and 32 columns at MM-IMDB's B=37 and B=96, four
-    samples and 32 columns at NTU's B=96 (96 blocks, one wave); a last
-    phase of its own (a step after the last GEMM) a sample a block; in fp32
-    and bf16, within the shared memory a block may take."""
+    launcher fills the card's 132 SMs: at B=8 and 37 it spreads each GEMM
+    phase over them (one 512-thread block an SM; one sample and 16 columns
+    a block at B=8, 96 and 64 blocks; two samples and 32 columns at B=37),
+    a last phase of its own (a step after the last GEMM) a sample a block;
+    at B=96, where B blocks fill more than half of them, it runs the whole
+    cell in one block a sample. In fp32 and bf16, within the shared memory
+    a block may take."""
     cfg = _chain(ops)
     for itemsize in (4, 2):
         geom = tnm.found_cell_geometry(emu_lib, B, L, C, cfg, m, itemsize)
-        assert [(g["samples_per_block"], g["cols_per_block"], g["blocks"])
-                for g in geom] == picks
+        assert [(g["kind"], g["samples_per_block"], g["cols_per_block"],
+                 g["blocks"]) for g in geom] == picks
         assert all(g["smem_bytes"] <= tnm.SMEM_LIMIT for g in geom)
+
+
+# (inner ops, multiplier, B, design asked for, the design the call takes)
+DESIGN_PICKS = [
+    (("LinearGLU",), 1, 65, "auto", "phases"),
+    (("LinearGLU",), 1, 66, "auto", "whole"),
+    (("Sum", "ScaleDotAttn"), 2, 65, "auto", "phases"),
+    (("Sum", "ScaleDotAttn"), 2, 66, "auto", "whole"),
+    (("Sum",), 1, 1, "auto", "whole"),
+    (("Sum", "Sum"), 1, 8, "auto", "whole"),
+    (("ScaleDotAttn",), 1, 96, "auto", "phases"),
+    (("Sum", "ScaleDotAttn"), 1, 96, "auto", "phases"),
+    (("LinearGLU",), 1, 8, "whole", "whole"),
+    (("LinearGLU",), 1, 96, "phases", "phases"),
+]
+
+
+@pytest.mark.parametrize("ops,m,B,design,want", DESIGN_PICKS,
+                         ids=[f"{'-'.join(o)}-m{m}-B{B}-{d}"
+                              for o, m, B, d, _ in DESIGN_PICKS])
+def test_found_launcher_picks_the_design(emu_lib, ops, m, B, design, want):
+    """On 132 SMs at L=8, C=128 the launcher runs a cell with a GEMM step
+    or an out-conv as phases up to B=65 and in one block a sample from
+    B=66 (half the SMs), a cell of Sums alone in one block a sample at any
+    B, a cell with an attention and no GEMM as its one last phase at any
+    B; a design asked for is the one taken, and a fixed GEMM geometry asks
+    for the phases."""
+    cfg = _chain(ops)
+    geom = tnm.found_cell_geometry(emu_lib, B, 8, 128, cfg, m, 4,
+                                   design=design)
+    got = "whole" if [g["kind"] for g in geom] == ["whole"] else "phases"
+    assert got == want
+    if want == "whole":
+        (g,) = geom
+        assert (g["samples_per_block"], g["blocks"], g["threads"]) == (
+            1, B, 256)
+    if want == "whole" and design == "auto":
+        fixed = tnm.found_cell_geometry(emu_lib, B, 8, 128, cfg, m, 4,
+                                        samples_per_block=2)
+        assert all(g["kind"] != "whole" for g in fixed)
+
+
+# (inner ops, multiplier, B, L, C): the whole cell in one block a sample,
+# asked for: every phase-plan cell at B=3 (a block of 64 threads), a ring
+# of K-tiles deeper than the double buffer (C=88: 2C = 176 rows of 32), and
+# two row tiles, the second ragged (L=20)
+WHOLE_CELLS = [(o, m, 3, 8, 16) for o, m, _ in PHASE_PLANS] + [
+    (("LinearGLU", "Sum", "ConcatFC", "ScaleDotAttn"), 6, 2, 8, 88),
+    (("ConcatFC", "ScaleDotAttn"), 2, 2, 20, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("ops,m,B,L,C", WHOLE_CELLS,
+                         ids=[f"{'-'.join(o)}-m{m}-L{L}-C{C}"
+                              for o, m, _, L, C in WHOLE_CELLS])
+def test_kernel_whole_design(emu_lib, ops, m, B, L, C, dtype):
+    """The whole cell in one block a sample against
+    ``found_node_cell_reference`` on a NaN scratch, which it never
+    reads."""
+    cfg = _chain(ops)
+    itemsize = 4 if dtype == torch.float32 else 2
+    (g,) = tnm.found_cell_geometry(emu_lib, B, L, C, cfg, m, itemsize,
+                                   design="whole")
+    assert (g["kind"], g["blocks"], g["threads"]) == (
+        "whole", B, 2 * -(-C // 32) * 32)
+    gen = torch.Generator().manual_seed(len(ops) * 10 + m + L)
+    p, x, y = _cell_inputs(gen, B, L, C, len(ops), m, dtype)
+    _compare(emu_lib, x, y, p, cfg, m, design="whole")
+
+
+def test_kernel_whole_design_none_edges(emu_lib):
+    """The whole cell in one block a sample with 'none' inner edges in an
+    attention, a GEMM and a Sum, at B=37."""
+    L, C = 8, 16
+    for edges, ops, m in NONE_EDGE_CELLS.values():
+        cfg = tnm.found_cell_steps_cfg(edges, ops)
+        gen = torch.Generator().manual_seed(37)
+        p, x, y = _cell_inputs(gen, 37, L, C, len(ops), m, torch.float32)
+        _compare(emu_lib, x, y, p, cfg, m, design="whole")
 
 
 def test_kernel_tickets_return_to_zero(emu_lib):
