@@ -5,7 +5,7 @@
 //
 //   * block reductions and the per-sample LayerNorm over (L, C) with a
 //     per-position affine, variance taken as E[(x - mean)^2];
-//   * softmax(X Y^T / sqrt(C)) Y for one sample, one warp per score;
+//   * softmax(X Y^T / sqrt(C)) Y for one sample, a thread a score;
 //   * the streamed GEMM h = [A_0 | A_1 | ...] W + b over all row tiles in
 //     fp32 FMA, the weights through a double buffer of K-tiles by
 //     cp.async, with a GLU or ReLU epilogue. Thread (h, n) owns output
@@ -68,38 +68,63 @@ __device__ void layer_norm(const float* v, int n, const P* scale,
   }
 }
 
-// softmax(X Y^T / sqrt(C)) Y for one sample into dst (L x C).
+// softmax(X Y^T / sqrt(C)) Y for one sample into dst (L x C; rows of C
+// floats, C % 4 == 0). A thread a score: four partial sums, float4 reads,
+// score (i, j) walking the columns from column 4j on, so that the threads
+// of a warp, on rows C floats apart, read different banks. A warp a row of
+// the softmax; a thread four output columns.
 __device__ void attention(const float* X, const float* Y, float* dst,
                           float* scores, int L, int C) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int nwarps = blockDim.x >> 5, cq = C / 4;
   const float inv_sqrt_c = 1.f / sqrtf(static_cast<float>(C));
-  for (int p = warp; p < L * L; p += nwarps) {
+  for (int p = threadIdx.x; p < L * L; p += blockDim.x) {
     const int i = p / L, j = p - i * L;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s = fmaf(X[i * C + c], Y[j * C + c], s);
-    s = warp_sum(s);
-    if (lane == 0) scores[p] = s * inv_sqrt_c;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    float* row = scores + i * L;
-    float mx = row[0];
-    for (int j = 1; j < L; ++j) mx = fmaxf(mx, row[j]);
-    float sum = 0.f;
-    for (int j = 0; j < L; ++j) {
-      row[j] = expf(row[j] - mx);
-      sum += row[j];
+    const float* xi = X + i * C;
+    const float* yj = Y + j * C;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);  // four partial sums
+    int c = 4 * (j % cq);
+#pragma unroll 4
+    for (int q = 0; q < cq; ++q) {
+      const float4 a = load4(xi + c), b = load4(yj + c);
+      acc.x = fmaf(a.x, b.x, acc.x);
+      acc.y = fmaf(a.y, b.y, acc.y);
+      acc.z = fmaf(a.z, b.z, acc.z);
+      acc.w = fmaf(a.w, b.w, acc.w);
+      c = c + 4 == C ? 0 : c + 4;
     }
-    const float inv = 1.f / sum;
-    for (int j = 0; j < L; ++j) row[j] *= inv;
+    scores[p] = ((acc.x + acc.y) + (acc.z + acc.w)) * inv_sqrt_c;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < L * C; idx += blockDim.x) {
-    const int i = idx / C, c = idx - i * C;
-    float a = 0.f;
-    for (int j = 0; j < L; ++j) a = fmaf(scores[i * L + j], Y[j * C + c], a);
-    dst[idx] = a;
+  for (int i = warp; i < L; i += nwarps) {
+    float* row = scores + i * L;
+    float mx = -3.402823466e38f;
+    for (int j = lane; j < L; j += 32) mx = fmaxf(mx, row[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(row[j] - mx);
+      row[j] = e;
+      sum += e;
+    }
+    const float inv = 1.f / warp_sum(sum);
+    for (int j = lane; j < L; j += 32) row[j] *= inv;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < L * cq; idx += blockDim.x) {
+    const int i = idx / cq, c = 4 * (idx - i * cq);
+    const float* pr = scores + i * L;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int j = 0; j < L; ++j) {
+      const float w = pr[j];
+      const float4 v = load4(Y + j * C + c);
+      a.x = fmaf(w, v.x, a.x);
+      a.y = fmaf(w, v.y, a.y);
+      a.z = fmaf(w, v.z, a.z);
+      a.w = fmaf(w, v.w, a.w);
+    }
+    store4(dst + i * C + c, a);
   }
   __syncthreads();
 }
