@@ -29,13 +29,13 @@
 //   * the phases, below: each GEMM spread over the card, a launch a phase.
 //   The launcher takes the phases where they gain: for a cell with a GEMM
 //   step or an out-conv while B leaves more than half of the card's SMs
-//   idle (2 B < SMs), and for a cell with an attention and no GEMM, whose
-//   one phase runs the attention faster. Otherwise, where B blocks already
-//   fill the card or a cell is Sums alone, it takes one block a sample. On
-//   the H100 (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py phase 3) the
-//   phases took a GLU cell at B = 8 from 38.2 to 19.0 us, but at B = 96,
-//   where one block a sample fills 96 SMs, they were slower in every cell
-//   with a GEMM (LinearGLU 60.8 against 39.3 us).
+//   idle (2 B < SMs). Where B blocks already fill the card, or the cell
+//   has no GEMM to spread, it takes one block a sample. On the H100
+//   (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py phase 3) the phases
+//   took a GLU cell at B = 8 from 38.2 to 19.0 us, but at B = 96, where
+//   one block a sample fills 96 SMs, they were slower in every cell with a
+//   GEMM (LinearGLU 60.8 against 39.3 us), and a cell without one ran 3-15%
+//   faster in one block a sample at every B.
 //
 // The phases:
 //   * A later step, the out-conv and the final LayerNorm each need
@@ -883,12 +883,9 @@ cudaError_t allow_smem() {
 // The launcher's design for a cell of B samples (the note at the top): true
 // for the whole cell in one block a sample, false for the phases.
 bool whole_first(const CellSteps& cs, int B) {
-  bool gemm = cs.m != 1, attn = false;
-  for (int s = 0; s < cs.S; ++s) {
-    gemm = gemm || cs.branch[s] >= 2;
-    attn = attn || cs.branch[s] == 1;
-  }
-  return gemm ? 2 * B >= sm_count() : !attn;
+  bool gemm = cs.m != 1;
+  for (int s = 0; s < cs.S; ++s) gemm = gemm || cs.branch[s] >= 2;
+  return !gemm || 2 * B >= sm_count();
 }
 
 // The one phase of the whole cell in one block a sample: 2 round32(C)

@@ -645,7 +645,7 @@ def test_kernel_phase_plans(emu_lib, ops, m, kinds, dtype):
     function reports equal to ``found_cell_phases``, against
     ``found_node_cell_reference`` on a NaN scratch. B=3 (the last GEMM
     group ragged at two samples a block), L=8, C=16; the phased design
-    asked for (the launcher runs a cell of Sums alone in one block a
+    asked for (the launcher runs a cell without a GEMM in one block a
     sample)."""
     B, L, C = 3, 8, 16
     cfg = _chain(ops)
@@ -792,8 +792,8 @@ DESIGN_PICKS = [
     (("Sum", "ScaleDotAttn"), 2, 66, "auto", "whole"),
     (("Sum",), 1, 1, "auto", "whole"),
     (("Sum", "Sum"), 1, 8, "auto", "whole"),
-    (("ScaleDotAttn",), 1, 96, "auto", "phases"),
-    (("Sum", "ScaleDotAttn"), 1, 96, "auto", "phases"),
+    (("ScaleDotAttn",), 1, 1, "auto", "whole"),
+    (("Sum", "ScaleDotAttn"), 1, 96, "auto", "whole"),
     (("LinearGLU",), 1, 8, "whole", "whole"),
     (("LinearGLU",), 1, 96, "phases", "phases"),
 ]
@@ -805,10 +805,9 @@ DESIGN_PICKS = [
 def test_found_launcher_picks_the_design(emu_lib, ops, m, B, design, want):
     """On 132 SMs at L=8, C=128 the launcher runs a cell with a GEMM step
     or an out-conv as phases up to B=65 and in one block a sample from
-    B=66 (half the SMs), a cell of Sums alone in one block a sample at any
-    B, a cell with an attention and no GEMM as its one last phase at any
-    B; a design asked for is the one taken, and a fixed GEMM geometry asks
-    for the phases."""
+    B=66 (half the SMs), a cell without a GEMM (Sums, attentions) in one
+    block a sample at any B; a design asked for is the one taken, and a
+    fixed GEMM geometry asks for the phases."""
     cfg = _chain(ops)
     geom = tnm.found_cell_geometry(emu_lib, B, 8, 128, cfg, m, 4,
                                    design=design)
