@@ -358,7 +358,8 @@ def kernel_times_us(fn):
 def phase_rows(geometry, fn):
     """The launcher's geometry of each phase of a call beside its device
     time (``us``; None where the trace lost the kernel)."""
-    times = [d for n, d in kernel_times_us(fn) if "found_cell_kernel" in n]
+    times = [d for n, d in kernel_times_us(fn)
+             if "found_cell_kernel" in n or "whole_cell_kernel" in n]
     if len(times) != len(geometry):
         log(f"  found_cell trace: {len(times)} kernels for "
             f"{len(geometry)} phases")
