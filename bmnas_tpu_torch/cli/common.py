@@ -45,6 +45,10 @@ NOT_PORTED = {
                  "Queue 1 item 10, torch.export"),
     "--from_export": (lambda a: getattr(a, "from_export", None) is not None,
                       "Queue 1 item 10, torch.export"),
+    # the Ego CLIs' parser (cli/ego.py)
+    "--host_decode_cache_gb": (
+        lambda a: getattr(a, "host_decode_cache_gb", 0.0) > 0,
+        "Queue 1 item 5b, the Ego search and found retraining"),
 }
 
 

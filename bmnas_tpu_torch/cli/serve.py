@@ -1,19 +1,24 @@
 """Batch-inference serving CLI on top of ``bmnas_tpu_torch.serving``.
 
-Port of ``bmnas_tpu/cli/serve.py::main_serve`` for ``--task mmimdb`` and
-``--task ntu``. It loads a found experiment's genotype and model snapshot
-and serves a dataset split through ``FoundNetServer`` on one device; the
-task's own flags are its found CLI's (``cli/mmimdb.py::parse_found_args``,
-``cli/ntu.py::parse_found_args``):
+Port of ``bmnas_tpu/cli/serve.py::main_serve``. It loads a found
+experiment's genotype and model snapshot and serves a dataset split through
+``FoundNetServer`` on one device; the task's own flags are its found CLI's
+(``cli/mmimdb.py``, ``cli/ntu.py``, ``cli/ego.py::parse_found_args``):
 
-    python -m bmnas_tpu_torch.cli.serve --task mmimdb|ntu \\
+    python -m bmnas_tpu_torch.cli.serve --task mmimdb|ntu|ego \\
         --eval_exp_dir <exp> --datadir <root> [--bf16] [--fused_kernels] \\
         [--split test] [--device cpu]
+
+Ego reads its annotation JSON from ``--checkpointdir`` (``--annotation``)
+and maps the split names test/dev/train to the subsets
+testing/validation/training. The weights are the snapshot's: serving reads
+no backbone checkpoint (``--rgb_cp``, ``--depth_cp``), as in the JAX
+package.
 
 It runs on CUDA unless ``--device cpu`` is given, and raises when there is
 no CUDA device. Prints one JSON line: {"metric", "value", "samples",
 "samples_per_sec", ...}; the metric is the weighted F1 for MM-IMDB and the
-accuracy (argmax) for NTU.
+accuracy (argmax) for NTU and Ego.
 """
 from __future__ import annotations
 
@@ -24,9 +29,6 @@ import time
 
 import numpy as np
 import torch
-
-# later slices of the port, by ROADMAP.md Queue 1 item
-_LATER_TASKS = {"ego": "the Ego slice"}
 
 
 def _resolve_artifacts(exp_dir: str, model_path: str = None):
@@ -55,7 +57,10 @@ def _parse_task_args(task: str, rest):
     if task == "mmimdb":
         from bmnas_tpu_torch.cli.mmimdb import parse_found_args
         return parse_found_args(rest)
-    from bmnas_tpu_torch.cli.ntu import parse_found_args
+    if task == "ntu":
+        from bmnas_tpu_torch.cli.ntu import parse_found_args
+        return parse_found_args(rest)
+    from bmnas_tpu_torch.cli.ego import parse_found_args
     return parse_found_args(rest)
 
 
@@ -68,8 +73,11 @@ def _build_task(task: str, args, genotype, device):
     if task == "mmimdb":
         from bmnas_tpu_torch.models.mmimdb import FoundImageTextNet
         return FoundImageTextNet.from_genotype(genotype, **kwargs)
-    from bmnas_tpu_torch.models.ntu import FoundSkeletonImageNet
-    return FoundSkeletonImageNet.from_genotype(genotype, **kwargs)
+    if task == "ntu":
+        from bmnas_tpu_torch.models.ntu import FoundSkeletonImageNet
+        return FoundSkeletonImageNet.from_genotype(genotype, **kwargs)
+    from bmnas_tpu_torch.models.ego import FoundRGBDepthNet
+    return FoundRGBDepthNet.from_genotype(genotype, **kwargs)
 
 
 def _dataset(task: str, args, split: str):
@@ -78,9 +86,21 @@ def _dataset(task: str, args, split: str):
         return MMIMDBDataset(args.datadir, split,
                              small_dataset=args.small_dataset,
                              num_workers=args.num_workers)
-    from bmnas_tpu_torch.data.ntu import NTUDataset
-    return NTUDataset(args.datadir, split, small_dataset=args.small_dataset,
-                      vid_len=tuple(args.vid_len), vid_dim=args.vid_dim,
+    if task == "ntu":
+        from bmnas_tpu_torch.data.ntu import NTUDataset
+        return NTUDataset(args.datadir, split,
+                          small_dataset=args.small_dataset,
+                          vid_len=tuple(args.vid_len), vid_dim=args.vid_dim,
+                          num_workers=args.num_workers)
+    from bmnas_tpu_torch.data.ego import EgoDataset
+    annotation = os.path.join(args.checkpointdir, args.annotation)
+    subset = {"test": "testing", "dev": "validation",
+              "train": "training"}.get(split, split)
+    return EgoDataset(args.datadir, annotation, subset,
+                      small_dataset=args.small_dataset,
+                      sample_size=args.sample_size,
+                      sample_duration=args.sample_duration,
+                      downsample=args.downsample,
                       num_workers=args.num_workers)
 
 
@@ -121,10 +141,6 @@ def main_serve(argv=None):
     top.add_argument("--from_export", default=None, metavar="PATH",
                      help="(not ported yet) serve from an exported program")
     args0, rest = top.parse_known_args(argv)
-    if args0.task in _LATER_TASKS:
-        raise NotImplementedError(
-            f"--task {args0.task}: not ported yet ({_LATER_TASKS[args0.task]}"
-            ", ROADMAP.md Queue 1)")
     from bmnas_tpu_torch.cli.common import refuse_not_ported
     refuse_not_ported(args0, ("--export", "--from_export"))
     if args0.eval_exp_dir is None:

@@ -952,9 +952,10 @@ int plan(const CellSteps& cs, int B, int L, int C, int S_req, int nt_req,
 }
 
 // The plans of recent calls. Picking a GEMM phase's geometry asks the
-// occupancy calculator once a candidate, up to 24 times a phase: on the
-// H100 a phased plan made anew took 20-58 us of host time against calls of
-// about 0.1 ms (chip_smoke.py phase 3, plan_us), so a call that repeats
+// occupancy calculator once a candidate, up to 24 times a phase: on an
+// H100 80GB HBM3 at 700 W a phased plan made anew took 9.1-50.2 us of host
+// time against calls of about 0.1 ms (chip_smoke.py phase 3, plan_us; the
+// run is PERF.md section 6's), so a call that repeats
 // one of these reuses its plan, and the kernels' shared-memory limit set
 // when it was made. The key holds ints only (no padding), compared as
 // bytes. Returns the number of phases, 0 if a phase fits no geometry, or

@@ -1,8 +1,10 @@
-"""Synthetic MM-IMDB- and NTU-shaped data on disk (numpy; the port's own
-copy of ``bmnas_tpu/data/synthetic.make_mmimdb_synthetic`` and
-``make_ntu_synthetic``: the same seed writes the same files)."""
+"""Synthetic MM-IMDB-, NTU- and EgoGesture-shaped data on disk (numpy, and
+PIL for the Ego JPEGs; the port's own copy of
+``bmnas_tpu/data/synthetic.make_mmimdb_synthetic``, ``make_ntu_synthetic``
+and ``make_ego_synthetic``: the same seed writes the same files)."""
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -37,6 +39,79 @@ def make_mmimdb_synthetic(root: str, n_per_stage: int = 8,
             np.save(os.path.join(d, f"text_{i:06}.npy"), txt)
             np.save(os.path.join(d, f"label_{i:06}.npy"), lab)
     return root
+
+
+def make_ego_synthetic(root: str, n_per_subset: int = 4, num_classes: int = 5,
+                       hw: int = 48, frames: int = 12, seed: int = 0,
+                       counts: dict = None, gestures_per_video: int = 1,
+                       frame_wh: tuple = None, smooth: bool = False) -> str:
+    """Write an EgoGesture-layout dataset (RGB and depth JPEG frame dirs and
+    the annotation JSON that ``data.ego.make_dataset`` reads); returns the
+    annotation's path.
+
+    * ``counts``: samples a subset (training, validation, testing), in
+      place of ``n_per_subset``;
+    * ``gestures_per_video``: G annotated gestures of ``frames`` frames in
+      one video dir of G * frames // 4 frames, their segments overlapping,
+      as in the real corpus;
+    * ``frame_wh``: the frames' (width, height), (hw, hw) by default;
+    * ``smooth``: low-frequency gradient frames in place of noise (they
+      compress about 10x better).
+    """
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    labels = [f"gesture{i}" for i in range(num_classes)]
+    database = {}
+    w, h = frame_wh if frame_wh else (hw, hw)
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+
+    def frame_img(gray):
+        if not smooth:
+            shape = (h, w) if gray else (h, w, 3)
+            return (rng.rand(*shape) * 255).astype(np.uint8)
+        a, b, c = rng.rand(3) * 4 + 1
+        base = ((np.sin(a * np.pi * xx + c) + np.cos(b * np.pi * yy)) * 0.25
+                + 0.5)
+        if gray:
+            return (base * 255).astype(np.uint8)
+        chans = [np.clip(base * s, 0, 1) for s in rng.rand(3) + 0.5]
+        return (np.stack(chans, -1) * 255).astype(np.uint8)
+
+    vid = 0
+    for subset in ("training", "validation", "testing"):
+        todo = counts.get(subset, n_per_subset) if counts else n_per_subset
+        while todo > 0:
+            g = min(gestures_per_video, todo)
+            n_frames = frames if g == 1 else max(frames, g * frames // 4)
+            subj = f"sub{vid:04d}"
+            rgb_dir = os.path.join(root, subj, "scene1", "Color", "rgb1")
+            depth_dir = os.path.join(root, subj, "scene1", "Depth", "depth1")
+            os.makedirs(rgb_dir, exist_ok=True)
+            os.makedirs(depth_dir, exist_ok=True)
+            for f in range(1, n_frames + 1):
+                Image.fromarray(frame_img(False)).save(
+                    os.path.join(rgb_dir, f"{f:06d}.jpg"))
+                # a 2-D uint8 array is an 'L' (8-bit gray) image
+                Image.fromarray(frame_img(True)).save(
+                    os.path.join(depth_dir, f"{f:06d}.jpg"))
+            for k in range(g):
+                start = (1 if n_frames == frames
+                         else int(rng.randint(1, n_frames - frames + 2)))
+                database[f"{subj}/scene1/Color/rgb1_{vid}_{k}"] = {
+                    "subset": subset,
+                    "annotations": {
+                        "label": labels[rng.randint(num_classes)],
+                        "start_frame": start,
+                        "end_frame": start + frames - 1},
+                }
+            todo -= g
+            vid += 1
+    ann_path = os.path.join(root, "annotation.json")
+    with open(ann_path, "w") as f:
+        json.dump({"labels": labels, "database": database}, f)
+    return ann_path
 
 
 def _write_skeleton_file(path: str, num_frames: int, rng) -> None:

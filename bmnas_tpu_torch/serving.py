@@ -4,8 +4,9 @@ Port of ``bmnas_tpu/serving.py`` (FoundNetServer, load_server): a found
 task net in eval mode on one device, fp32 or bf16 weights and activations
 (logits returned in fp32; in bf16 the BatchNorms keep fp32 weights and
 statistics), fixed-size batches with a ``mask``, valid rows
-trimmed on return. Integer inputs (NTU's uint8 clips) are uploaded as
-they are and normalized by the model on the device. Every FoundNodeCell
+trimmed on return. Integer inputs (NTU's uint8 clips, Ego's uint8 RGB and
+depth clips) are uploaded as they are and normalized by the model on the
+device. Every FoundNodeCell
 folds its BatchNorms once, when the server is built; on CUDA each cell
 then runs the found-cell kernel.
 """
@@ -57,8 +58,8 @@ class FoundNetServer:
     def _inputs(self, batch: Mapping[str, np.ndarray]
                 ) -> Dict[str, torch.Tensor]:
         """The model's inputs on the device: floating arrays in the
-        server's dtype, integer ones (an NTU batch's uint8 clip, which the
-        model normalizes) as they are."""
+        server's dtype, integer ones (the uint8 clips of an NTU or Ego
+        batch, which the model normalizes) as they are."""
         keys = self.input_keys or [k for k in batch
                                    if k not in ("label", "mask")]
         out = {}

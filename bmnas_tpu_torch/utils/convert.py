@@ -10,8 +10,10 @@ mechanical:
 
 * a scope path ``a/b/c`` becomes the key prefix ``a.b.c``;
 * ``kernel`` -> ``weight``: a 2-D conv's HWIO becomes OIHW, a 3-D conv's
-  (kT, kH, kW, I, O) becomes ``Conv3d.weight``'s (O, I, kT, kH, kW), a
-  dense layer's (in, out) becomes ``Linear.weight``'s (out, in);
+  (kT, kH, kW, I, O) becomes ``Conv3d.weight``'s (O, I, kT, kH, kW) (a
+  grouped one's I is the inputs a group, in both frameworks, and its
+  output channels are group-major in both), a dense layer's (in, out)
+  becomes ``Linear.weight``'s (out, in);
 * ``scale`` -> ``weight`` (BatchNorm and LayerNorm2D; LayerNorm2D's (L, C)
   keeps its shape), ``bias`` -> ``bias``;
 * ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``,

@@ -12,28 +12,30 @@ line) on any error:
    ``nvcc`` per source, all started together.
 3. found_cell vs plain: the found-cell kernel against its plain PyTorch
    version on the card, for seven cell configurations at L=16, C=192, B in
-   {8, 37, 96}, and for the four cells that phase 10 serves (two chained
-   steps, multiplier 2, so the out-conv runs) at L=8, C=128, B in {2, 8,
-   96}, in fp32 (tolerance 1e-4 abs + 1e-4 rel) and bf16 (2e-2 abs
-   + 2e-2 rel; both sides round the same fp32 result to bf16 once). Times
-   (CUDA events, median, L2 flushed before each launch) at B=8, 37 and
-   96: device time (``ms``, host dispatch hidden behind a sleep kernel)
-   and call time (``call_ms``, host dispatch included), for the kernel and
-   the plain version, beside each configuration's bound (the larger of
-   bytes / 3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic
-   type) and its tensor-core bound (the FLOP at the dense TF32 or bf16
-   rate). The launcher picks one of two designs (``design``): the cell as
-   phases, one launch each, or the whole cell in one block a sample; the
-   design it did not pick is checked against the plain version too and
-   timed (``alt_ms``). ``call_ms_replan``: the call time when the launcher
-   plans the call anew (``found_cell_geometry`` before the call), which a
-   call without the plan cache of ``csrc/found_cell.cu`` would pay, and
-   ``plan_us`` that planning's host time alone. Every call is made twice
-   on the same input: the two outputs must be equal bit for bit, and each
+   {8, 37, 96}, for the four cells that phase 10 serves (two chained steps,
+   multiplier 2, so the out-conv runs) at L=8, C=128, B in {2, 8, 96}, and
+   for the two cells that phase 12 serves and a third (three chained steps,
+   multiplier 3: an out-conv of 3C = 384 rows) at the same width and
+   batches, in fp32 (tolerance 1e-4 abs + 1e-4 rel) and bf16 (2e-2 abs +
+   2e-2 rel; both sides round the same fp32 result to bf16 once). Times
+   (CUDA events, median, L2 flushed before each launch) at B=8, 37 and 96:
+   device time (``ms``, host dispatch hidden behind a sleep kernel) and
+   call time (``call_ms``, host dispatch included), for the kernel and the
+   plain version, beside each configuration's bound (the larger of bytes /
+   3.35 TB/s and FLOP / 67 TFLOP/s fp32, the kernel's arithmetic type) and
+   its tensor-core bound (the FLOP at the dense TF32 or bf16 rate). The
+   launcher picks one of two designs (``design``): the cell as phases, one
+   launch each, or the whole cell in one block a sample; the design it did
+   not pick is checked against the plain version too and timed
+   (``alt_ms``). ``call_ms_replan``: the call time when the launcher plans
+   the call anew (``found_cell_geometry`` before the call), which a call
+   without the plan cache of ``csrc/found_cell.cu`` would pay, and
+   ``plan_us`` that planning's host time alone. Every call is made twice on
+   the same input: the two outputs must be equal bit for bit, and each
    wrapper call counts one launch whatever the cell's phases. For
    LinearGLU, ConcatFC and the four NTU cells at the timed batches: each
    phase's device time from one ``torch.profiler`` trace of a call, beside
-   the geometry the launcher picked for it.
+   the geometry the launcher picked for it (the Ego cells too).
 4. node_mixed vs plain: the supernet's mixed-op kernel against its plain
    version at L=16, C=192, B in {5, 8, 37, 96}, and at the NTU search
    width, L=8, C=128, B=96, fp32 and bf16 (the same tolerances), with
@@ -130,7 +132,7 @@ line) on any error:
    the CPU must agree within 1e-3 (TF32 off); on CUDA the bf16 server's
    must lie within 2x (plus 1e-3) the distance from the fp32 logits of
    those of the fp32 net run on bf16-rounded weights and input (the
-   seeded net amplifies bf16's rounding; ``ntu_bf16_vs_fp32``). Then the
+   seeded net amplifies bf16's rounding; ``bf16_vs_fp32``). Then the
    breakdown of a request of 96 (median of 5) in fp32 and bf16, as in
    phase 5, with the FLOP of the backbone's convolutions and a profiler
    trace of the request (device busy ms, idle share, launches, the
@@ -172,11 +174,34 @@ line) on any error:
    longest kernels and the op that launched each), the peak memory of the
    found weight step, and the same step without remat (expected to run
    out of memory; reported).
-12. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
+12. Ego serve: the JPEG decoders found and the route that
+   ``data.ego._load_jpg`` takes for a colour, a gray and a colour-encoded
+   gray frame; a synthetic Ego test split written by the port's
+   ``make_ego_synthetic`` (100 gestures of 32 frames of 320x240 smooth
+   JPEGs, twelve to a video: a full batch of 96 and one of 4 padded to
+   96) and a found experiment dir (a genotype of two found cells of three
+   chained inner steps, every inner op between them, node multiplier 3,
+   reading RGB and depth taps, and a seeded snapshot with He-initialised
+   convolutions and BatchNorm statistics from a train-mode pass), served
+   through ``main_serve --task ego`` at the Ego defaults (C=128, L=8,
+   steps 2, node_steps 3, node_multiplier 3, 8 input nodes, 83 classes,
+   clips cropped to 32 frames of 112x112, two full ResNeXt-101s) in fp32
+   and in bf16. The found-cell kernel must launch exactly 2 times a
+   batch, the logits must be finite, the accuracy line printed. The first
+   2 samples' logits on CUDA and on the CPU must agree within 1e-3 (TF32
+   off); the bf16 server's must pass phase 10's rule (``bf16_vs_fp32``).
+   Then the breakdown of a request of 96 (median of 5) in fp32 and bf16:
+   host ms to load the batch (JPEG decode, crop), ``predict`` ms, the
+   spans ``rgb_net``, ``depth_net``, ``reshape_i`` and ``fusion_net``,
+   the convolutions' FLOP and TFLOP/s, a profiler trace (device busy ms,
+   idle share, launches, the longest kernels and the op that launched
+   each) and the peak device memory.
+13. result: a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Every kernel must launch on its path (found_cell: serving, the found test
-phase, test-only, NTU serving and the NTU found test phase and test-only;
+phase, test-only, NTU serving, the NTU found test phase and test-only, and
+Ego serving;
 node_mixed: the MM-IMDB and NTU search eval steps; attention: phase 9): the
 counts are set to 0 just before each path and read just after it.
 """
@@ -227,6 +252,16 @@ NTU_KERNEL_CONFIGS = [
     (2, 2, ("ScaleDotAttn", "ConcatFC")),
     (2, 2, ("ConcatFC", "Sum")),
     (2, 2, ("Sum", "ScaleDotAttn")),
+]
+# the Ego serving width (phase 12) and its cells: three chained steps,
+# multiplier 3, so every call runs the out-conv over 3C = 384 rows; the
+# first two are the cells that phase 12 serves (every inner op between
+# them), the third puts a Sum and an attention after its GEMM step
+EGO_L, EGO_C = 8, 128
+EGO_KERNEL_CONFIGS = [
+    (3, 3, ("ScaleDotAttn", "LinearGLU", "ConcatFC")),
+    (3, 3, ("Sum", "ConcatFC", "LinearGLU")),
+    (3, 3, ("LinearGLU", "Sum", "ScaleDotAttn")),
 ]
 
 
@@ -332,7 +367,8 @@ def time_ms(fn, flush, hide_host, iters=30, warmup=3):
 
 # the cells whose phases phase 3 traces one by one
 PHASE_TRACED = [("Sum",), ("ScaleDotAttn",), ("LinearGLU",),
-                ("ConcatFC",)] + [ops for _, _, ops in NTU_KERNEL_CONFIGS]
+                ("ConcatFC",)] + [ops for _, _, ops in NTU_KERNEL_CONFIGS
+                                  + EGO_KERNEL_CONFIGS]
 def kernel_times_us(fn):
     """(name, device µs) of each kernel one call of ``fn`` launches, in
     launch order, from one ``torch.profiler`` trace (after one warm call)."""
@@ -369,9 +405,10 @@ def phase_rows(geometry, fn):
 
 def kernel_phase(device):
     """The MM-IMDB width (``CONFIGS`` at L=16, C=192, B in 8/37/96), then
-    the NTU serving width (``NTU_KERNEL_CONFIGS`` at L=8, C=128, B in
-    2/8/96: 96 is phase 10's serving batch, every batch padded to full,
-    and 2 its CUDA-vs-CPU batch)."""
+    the NTU and Ego serving widths (``NTU_KERNEL_CONFIGS``,
+    ``EGO_KERNEL_CONFIGS`` at L=8, C=128, B in 2/8/96: 96 is phases 10 and
+    12's serving batch, every batch padded to full, and 2 their
+    CUDA-vs-CPU batch)."""
     gen = torch.Generator().manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=device)
     rows = []
@@ -381,6 +418,9 @@ def kernel_phase(device):
     for node_steps, m, ops in NTU_KERNEL_CONFIGS:
         rows += cell_cases(gen, flush, device, node_steps, m, ops, NTU_L,
                            NTU_C, (2, 8, 96))
+    for node_steps, m, ops in EGO_KERNEL_CONFIGS:
+        rows += cell_cases(gen, flush, device, node_steps, m, ops, EGO_L,
+                           EGO_C, (2, 8, 96))
     return rows
 
 
@@ -1952,7 +1992,7 @@ def ntu_cuda_vs_cpu(data, exp):
     """The first 2 test samples' logits at the full width: the port on CUDA
     (through the kernel) against the port on the CPU (plain PyTorch), TF32
     off on both sides, within phase 5's 1e-3; and the CUDA server in bf16
-    against it in fp32 (``ntu_bf16_vs_fp32``)."""
+    against it in fp32 (``bf16_vs_fp32``)."""
     from bmnas_tpu_torch.data.ntu import NTUDataset
     batch = next(iter(NTUDataset(data, "test", num_workers=2).batches(
         NTU_CPU_SAMPLES, shuffle=False)))
@@ -1964,30 +2004,34 @@ def ntu_cuda_vs_cpu(data, exp):
     return {"samples": NTU_CPU_SAMPLES, "max_abs_diff": diff,
             "logits_abs_max": float(np.abs(out["cpu"]).max()),
             "tolerance": 1e-3,
-            "bf16_vs_fp32": ntu_bf16_vs_fp32(batch, exp, out["cuda"])}
+            "bf16_vs_fp32": bf16_vs_fp32(
+                lambda dt: ntu_server(exp, "cuda", dt), batch, out["cuda"],
+                ("rgbnet",), ("skeleton",))}
 
 
-def ntu_bf16_vs_fp32(batch, exp, ref):
-    """The bf16 CUDA server's logits against the fp32 ones (``ref``).
+def bf16_vs_fp32(server_of, batch, ref, backbones, float_keys=()):
+    """The bf16 CUDA server's logits against the fp32 ones (``ref``);
+    ``server_of(dtype)`` builds a CUDA server.
 
     The seeded net amplifies small changes: in fp32, its input changed by
     bf16's unit roundoff alone moves its logits by a large share of their
     spread. So the bound is measured on the same batch: ``rounded`` runs
     in fp32 the net that a bf16 server holds (every weight but the
     BatchNorms', which it keeps in fp32, rounded to bf16) on the input
-    that it sees (the skeletons and the normalized clip rounded to bf16).
-    The bf16 server also rounds its activations, an error of the same
-    order; its logits must lie within 2x the distance of ``rounded``'s
-    from ``ref``, plus 1e-3. The fp32 net on the rounded input alone is
-    reported beside them."""
+    that it sees (the batch's ``float_keys`` and each of ``backbones``'
+    normalized input rounded to bf16). The bf16 server also rounds its
+    activations, an error of the same order; its logits must lie within
+    2x the distance of ``rounded``'s from ``ref``, plus 1e-3. The fp32 net
+    on the rounded input alone is reported beside them."""
     from bmnas_tpu_torch.models.foundnet import FoundNodeCell
-    bf16 = ntu_server(exp, "cuda", torch.bfloat16).predict(batch)
-    server = ntu_server(exp, "cuda")
+    bf16 = server_of(torch.bfloat16).predict(batch)
+    server = server_of(torch.float32)
     model = server.model
-    hook = model.rgbnet.register_forward_pre_hook(
+    hooks = [model.get_submodule(n).register_forward_pre_hook(
         lambda m, args: (args[0].to(torch.bfloat16).float(),))
-    batch16 = dict(batch, skeleton=torch.from_numpy(
-        batch["skeleton"]).to(torch.bfloat16).float().numpy())
+        for n in backbones]
+    batch16 = dict(batch, **{k: torch.from_numpy(batch[k]).to(
+        torch.bfloat16).float().numpy() for k in float_keys})
     input_only = server.predict(batch16)
     with torch.no_grad():
         for m in model.modules():
@@ -2001,12 +2045,13 @@ def ntu_bf16_vs_fp32(batch, exp, ref):
             if isinstance(m, FoundNodeCell):
                 m.fold()
     rounded = server.predict(batch16)
-    hook.remove()
+    for h in hooks:
+        h.remove()
     d16 = float(np.abs(bf16 - ref).max())
     yard = float(np.abs(rounded - ref).max())
     if not (np.isfinite(bf16).all() and d16 <= 2 * yard + 1e-3):
-        raise AssertionError(f"NTU bf16 vs fp32 CUDA logits differ by {d16}"
-                             f"; the fp32 net of bf16-rounded weights and "
+        raise AssertionError(f"bf16 vs fp32 CUDA logits differ by {d16}; "
+                             f"the fp32 net of bf16-rounded weights and "
                              f"input by {yard}")
     return {"max_abs_diff": d16, "mean_abs_diff": float(
                 np.abs(bf16 - ref).mean()),
@@ -2638,6 +2683,327 @@ def ntu_train_phase(root, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: Ego serve
+# ---------------------------------------------------------------------------
+
+# the Ego found defaults (cli/ego.py::parse_found_args)
+EGO_CFG = dict(C=EGO_C, L=EGO_L, steps=2, multiplier=2, node_steps=3,
+               node_multiplier=3, num_input_nodes=8, num_keep_edges=2,
+               num_outputs=83, drpt=0.0)
+# 100 test gestures (a full batch of 96 and one of 4 padded to 96), clips
+# of 32 frames of 320x240 (the corpus's size), twelve gestures to a video
+# of 96 frames, their segments overlapping, as in the corpus; the clips
+# are centre-cropped to 32 frames of 112x112
+EGO_SAMPLES, EGO_BATCH, EGO_FRAMES, EGO_FRAME_WH = 100, 96, 32, (320, 240)
+EGO_SIZE = 112
+EGO_CPU_SAMPLES = 2  # the CUDA vs CPU batch, at the full width
+
+
+def ego_genotype():
+    """The two cells of ``EGO_KERNEL_CONFIGS`` that phase 12 serves: three
+    chained inner steps (each reads the one before it), every inner op
+    between them, inner concat of all three (multiplier 3, so each runs
+    the out-conv). The first reads the RGB net's x3 and the depth net's
+    x4, the second the first cell's output and the depth net's x2."""
+    from bmnas_tpu_torch.genotype import Genotype, StepGenotype
+    return Genotype(
+        edges=[("skip", 1), ("skip", 6), ("skip", 8), ("skip", 4)],
+        concat=[8, 9],
+        steps=[StepGenotype(list(chain_edges(3)), list(ops), [2, 3, 4])
+               for _, _, ops in EGO_KERNEL_CONFIGS[:2]])
+
+
+def seeded_ego_net(seed, device):
+    """The Ego genotype's found net at the full width, made on the CPU:
+    convolutions He-initialised, BatchNorm affines randomized, then every
+    BatchNorm's statistics taken from one train-mode pass (on ``device``)
+    over 4 random clips, the backbones' too (which the net otherwise keeps
+    in eval mode): random, so that folding is exercised, and true to the
+    activations, so that those stay O(1) through the 33 bottlenecks of
+    each ResNeXt-101."""
+    from bmnas_tpu_torch.models.ego import FoundRGBDepthNet
+    torch.manual_seed(seed)
+    model = FoundRGBDepthNet.from_genotype(ego_genotype(), device="cpu",
+                                           **EGO_CFG)
+    gen = torch.Generator().manual_seed(seed + 1)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm1d)]
+    shape = (4, EGO_FRAMES, EGO_SIZE, EGO_SIZE)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv3d):
+                fan_in = mod.weight[0].numel()
+                mod.weight.normal_(0.0, math.sqrt(2.0 / fan_in),
+                                   generator=gen)
+        for bn in bns:
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(0.0, 0.1, generator=gen)
+            bn.momentum = 1.0  # the running statistics become the batch's
+        batch = {"rgb": torch.randint(0, 256, shape + (3,), generator=gen,
+                                      dtype=torch.uint8),
+                 "depth": torch.randint(0, 256, shape + (1,), generator=gen,
+                                        dtype=torch.uint8),
+                 "mask": torch.ones(shape[0])}
+        model.to(device).train()
+        model.rgb_net.train()
+        model.depth_net.train()
+        model({k: v.to(device) for k, v in batch.items()})
+        for bn in bns:
+            bn.momentum = 0.1
+    return model.cpu().eval()
+
+
+def write_ego_experiment(root, device):
+    """A synthetic Ego test split (JPEG frames, the annotation) and a found
+    experiment dir."""
+    from bmnas_tpu_torch.data.synthetic import make_ego_synthetic
+    from bmnas_tpu_torch.genotype import save_genotype
+    from bmnas_tpu_torch.utils.checkpoint import save_model
+    data = os.path.join(root, "ego_data")
+    make_ego_synthetic(
+        data, num_classes=EGO_CFG["num_outputs"], frames=EGO_FRAMES, seed=0,
+        counts={"training": 0, "validation": 0, "testing": EGO_SAMPLES},
+        gestures_per_video=12, frame_wh=EGO_FRAME_WH, smooth=True)
+    best = os.path.join(root, "ego_exp", "best")
+    os.makedirs(best)
+    save_genotype(ego_genotype(), os.path.join(best, "best_genotype.pkl"))
+    save_model(os.path.join(best, "best_model.pt"),
+               seeded_ego_net(0, device))
+    return data, os.path.join(root, "ego_exp")
+
+
+def ego_decoders(root):
+    """Which JPEG decoder is installed, and the route ``data.ego._load_jpg``
+    takes for a colour, a gray and a colour-encoded gray frame (320x240,
+    written by PIL): the decoders it calls (``cv2.imread`` and PIL's
+    ``Image.open`` spied on), each frame decoded to its expected shape."""
+    from PIL import Image
+
+    from bmnas_tpu_torch.data import ego as ego_data
+    out = {}
+    for mod in ("cv2", "PIL"):
+        try:
+            out[mod] = __import__(mod).__version__
+        except ImportError:
+            out[mod] = None
+    called = []
+    spied = [(Image, "open", "PIL")]
+    if out["cv2"] is not None:
+        spied.append((__import__("cv2"), "imread", "cv2"))
+    originals = [getattr(mod, name) for mod, name, _ in spied]
+
+    def spy(orig, tag):
+        def call(*a, **k):
+            called.append(tag)
+            return orig(*a, **k)
+        return call
+    rng = np.random.RandomState(0)
+    w, h = EGO_FRAME_WH
+    routes = {}
+    frames = (("colour", rng.randint(0, 256, (h, w, 3)), False),
+              ("gray", rng.randint(0, 256, (h, w)), True),
+              ("colour-encoded gray", rng.randint(0, 256, (h, w, 3)), True))
+    paths = [os.path.join(root, kind.replace(" ", "_") + ".jpg")
+             for kind, _, _ in frames]
+    for path, (_, arr, _) in zip(paths, frames):
+        Image.fromarray(arr.astype(np.uint8)).save(path)
+    try:
+        for (mod, name, tag), orig in zip(spied, originals):
+            setattr(mod, name, spy(orig, tag))
+        for path, (kind, _, gray) in zip(paths, frames):
+            called.clear()
+            img = ego_data._load_jpg(path, gray)
+            if img.shape != (h, w, 1 if gray else 3) or img.dtype != np.uint8:
+                raise AssertionError(f"{kind} frame decoded to {img.shape} "
+                                     f"{img.dtype}")
+            routes[kind] = " then ".join(called)
+    finally:
+        for (mod, name, _), orig in zip(spied, originals):
+            setattr(mod, name, orig)
+    out["routes"] = routes
+    return out
+
+
+def ego_args(data, exp):
+    """The serve CLI's flags: the data, and the Ego defaults spelt out."""
+    return ["--task", "ego", "--eval_exp_dir", exp, "--datadir", data,
+            "--checkpointdir", data, "--annotation", "annotation.json",
+            "--batchsize", str(EGO_BATCH), "--sample_size", str(EGO_SIZE),
+            "--sample_duration", str(EGO_FRAMES), "--num_workers", "8"]
+
+
+def ego_serve_once(data, exp, bf16):
+    """``main_serve --task ego`` at the Ego defaults; 2 found-cell launches
+    a batch (one a found cell)."""
+    from bmnas_tpu_torch.cli.serve import main_serve
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES
+    before = LAUNCHES["found_cell"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_serve(ego_args(data, exp) + (["--bf16"] if bf16
+                                                   else []))
+    printed = buf.getvalue()
+    sys.stdout.write(printed)
+    launched = LAUNCHES["found_cell"] - before
+    line = json.loads(printed.strip().splitlines()[-1])
+    n_batches = -(-EGO_SAMPLES // EGO_BATCH)
+    checks = {
+        "printed == returned": line == result,
+        "metric": result["metric"] == "accuracy",
+        "samples": result["samples"] == EGO_SAMPLES,
+        "batches": result["batches"] == n_batches,
+        "launches == 2 x batches": launched == 2 * n_batches,
+        "finite logits": result["logits_finite"],
+        "accuracy in [0, 1]": 0.0 <= result["value"] <= 1.0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"Ego serve (bf16={bf16}) failed {checks}: "
+                             f"{result}, launches={launched}")
+    return dict(result, launches=launched)
+
+
+def ego_server(exp, device, dtype=torch.float32):
+    from bmnas_tpu_torch.genotype import load_genotype
+    from bmnas_tpu_torch.models.ego import FoundRGBDepthNet
+    from bmnas_tpu_torch.serving import load_server
+    geno = load_genotype(os.path.join(exp, "best", "best_genotype.pkl"))
+    model = FoundRGBDepthNet.from_genotype(geno, device=device, **EGO_CFG)
+    return load_server(os.path.join(exp, "best", "best_model.pt"), model,
+                       dtype=dtype, device=device)
+
+
+def ego_dataset(data):
+    from bmnas_tpu_torch.data.ego import EgoDataset
+    return EgoDataset(data, os.path.join(data, "annotation.json"), "testing",
+                      sample_size=EGO_SIZE, sample_duration=EGO_FRAMES,
+                      num_workers=8)
+
+
+def ego_cuda_vs_cpu(data, exp):
+    """The first 2 test samples' logits at the full width: the port on CUDA
+    (through the kernel) against the port on the CPU (plain PyTorch), TF32
+    off on both sides, within 1e-3; and the CUDA server in bf16 against it
+    in fp32 (``bf16_vs_fp32``)."""
+    batch = next(iter(ego_dataset(data).batches(EGO_CPU_SAMPLES,
+                                                shuffle=False)))
+    out = {dev: ego_server(exp, dev).predict(batch)
+           for dev in ("cuda", "cpu")}
+    diff = float(np.abs(out["cuda"] - out["cpu"]).max())
+    if not (np.isfinite(out["cuda"]).all() and diff <= 1e-3):
+        raise AssertionError(f"Ego CUDA vs CPU logits differ by {diff}")
+    return {"samples": EGO_CPU_SAMPLES, "max_abs_diff": diff,
+            "logits_abs_max": float(np.abs(out["cpu"]).max()),
+            "tolerance": 1e-3,
+            "bf16_vs_fp32": bf16_vs_fp32(
+                lambda dt: ego_server(exp, "cuda", dt), batch, out["cuda"],
+                ("rgb_net", "depth_net"))}
+
+
+def ego_breakdown(data, exp, dtype, tmp, iters=5):
+    """``request_breakdown`` of a request of 96 at the Ego defaults, a
+    profiler trace of 2 more requests (device busy ms, the idle share of
+    the median ``predict``, kernel launches, the 8 longest kernels and the
+    op that launched each), and the peak device memory of a request."""
+    server = ego_server(exp, "cuda", dtype)
+    parts = (["rgb_net", "depth_net"]
+             + [f"reshape_{i}" for i in server.model.used]
+             + ["fusion_net", "central_classifier"])
+    dataset = ego_dataset(data)
+    out = request_breakdown(server, dataset, EGO_BATCH, parts, iters)
+    batch = next(iter(dataset.batches(EGO_BATCH, shuffle=False)))
+    busy, launches, top = device_busy_ms(lambda: server.predict(batch), tmp,
+                                         iters=2, top=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    server.predict(batch)
+    out.update(device_busy_ms=busy, kernel_launches=launches,
+               top_kernels_ms=top, device_idle_share=None if busy is None
+               else 1 - busy / out["predict_ms"],
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               resident_bytes=resident)
+    return out
+
+
+def ego_conv_flop(batch):
+    """FLOP of each ResNeXt-101's convolutions on one batch (2 per
+    multiply-add; the grouped ones apart), counted by forward hooks on a
+    copy on the meta device (no data, no compute)."""
+    from bmnas_tpu_torch.models.ego import FoundRGBDepthNet
+    model = FoundRGBDepthNet.from_genotype(ego_genotype(), device="meta",
+                                           **EGO_CFG).eval()
+    flop = {"rgb_net": 0, "depth_net": 0, "grouped": 0}
+    for part in ("rgb_net", "depth_net"):
+        for mod in model.get_submodule(part).modules():
+            if isinstance(mod, torch.nn.Conv3d):
+                def count(m, a, o, part=part):
+                    f = 2 * o.numel() * m.weight[0].numel()
+                    flop[part] += f
+                    if m.groups > 1:
+                        flop["grouped"] += f
+                mod.register_forward_hook(count)
+    shape = (batch, EGO_FRAMES, EGO_SIZE, EGO_SIZE)
+    with torch.no_grad():
+        model({"rgb": torch.zeros(shape + (3,), dtype=torch.uint8,
+                                  device="meta"),
+               "depth": torch.zeros(shape + (1,), dtype=torch.uint8,
+                                    device="meta"),
+               "mask": torch.ones(batch, device="meta")})
+    return flop
+
+
+def ego_phase(root, device):
+    """Phase 12: the Ego found net served at the Ego defaults. Returns the
+    report and the launch counts of the serve runs (the main path)."""
+    from bmnas_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    t0 = time.perf_counter()
+    out = {"decoders": ego_decoders(root)}
+    log("  JPEG decoders: cv2 {cv2}, PIL {PIL}; routes {routes}".format(
+        **out["decoders"]))
+    data, exp = write_ego_experiment(root, device)
+    out["write_s"] = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for convs
+    reset_launches()
+    out["fp32"] = ego_serve_once(data, exp, bf16=False)
+    out["bf16"] = ego_serve_once(data, exp, bf16=True)
+    launches = dict(LAUNCHES)
+    torch.backends.cudnn.allow_tf32 = False
+    out["cuda_vs_cpu"] = ego_cuda_vs_cpu(data, exp)
+    log(f"  cuda vs cpu logits: {out['cuda_vs_cpu']}")
+    torch.backends.cudnn.allow_tf32 = True
+    out["breakdown"] = [ego_breakdown(data, exp, dt, root)
+                        for dt in (torch.float32, torch.bfloat16)]
+    out["conv_flop_per_batch"] = flop = ego_conv_flop(EGO_BATCH)
+    for b in out["breakdown"]:
+        convs_ms = (b["layer_device_ms"]["rgb_net"]
+                    + b["layer_device_ms"]["depth_net"])
+        b["conv_tflop_per_s"] = (
+            (flop["rgb_net"] + flop["depth_net"]) / convs_ms / 1e9)
+        log("  breakdown {dtype}, batch {batch}: load {load_ms_per_batch:.3f}"
+            " ms/batch, predict {predict_ms:.3f} ms (median of {n}), other "
+            "{other_ms:.3f} ms, layers (device) ".format(
+                n=len(b["predict_ms_all"]), **b) + ", ".join(
+                f"{k} {v:.4f}" for k, v in b["layer_device_ms"].items())
+            + "; convs {:.3f} TFLOP a batch ({:.3f} grouped) at {:.1f} "
+            "TFLOP/s over both backbones' spans; peak memory {:.2f} GB "
+            "({:.2f} GB resident before the request)".format(
+                (flop["rgb_net"] + flop["depth_net"]) / 1e12,
+                flop["grouped"] / 1e12, b["conv_tflop_per_s"],
+                b["peak_memory_bytes"] / 1e9, b["resident_bytes"] / 1e9))
+        if b["device_busy_ms"] is None:
+            log("  trace {dtype}: device busy not measured (no device events "
+                "in the profiler trace)".format(**b))
+        else:
+            log("  trace {dtype}: device busy {device_busy_ms:.3f} ms a "
+                "request, idle share {device_idle_share:.3f}, "
+                "{kernel_launches:.0f} kernel launches; top ".format(**b)
+                + ", ".join(f"{n} ({op}) {d:.3f}"
+                            for n, d, op in b["top_kernels_ms"]))
+    out["seconds"] = time.perf_counter() - t0
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2675,7 +3041,8 @@ def main(argv=None):
                 log(f"  ptxas {n}: {line.strip()}")
                 report["ptxas"].setdefault(n, []).append(line.strip())
 
-    log("[3 found_cell vs plain] L=16 C=192")
+    log("[3 found_cell vs plain] L=16 C=192; NTU and Ego widths, L=8 "
+        "C=128")
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = kernel_phase(device)
     report["found_cell"] = rows
@@ -2840,12 +3207,32 @@ def main(argv=None):
         "{:.1f} s)".format(report["ntu_train"]["seconds"],
                            report["ntu_train"]["write_s"]))
 
+    log("[12 Ego serve] Ego found net, C={C} L={L} steps {steps} "
+        "node_steps {node_steps} node_multiplier {node_multiplier}, two "
+        "ResNeXt-101s, {f}-frame clips of {w}x{h} JPEG frames cropped to "
+        "{s}x{s}, {n} samples in batches of {b}".format(
+            f=EGO_FRAMES, w=EGO_FRAME_WH[0], h=EGO_FRAME_WH[1], s=EGO_SIZE,
+            n=EGO_SAMPLES, b=EGO_BATCH, **EGO_CFG))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ego_")
+    try:
+        report["ego_serve"], main_path_launches["ego serve"] = ego_phase(
+            tmp, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  Ego serve: {:.1f} s (writing the data and the snapshot {:.1f} s);"
+        " found_cell launches fp32 {}, bf16 {} over {} batches each".format(
+            report["ego_serve"]["seconds"], report["ego_serve"]["write_s"],
+            report["ego_serve"]["fp32"]["launches"],
+            report["ego_serve"]["bf16"]["launches"],
+            report["ego_serve"]["fp32"]["batches"]))
+
     report["main_path_launches"] = main_path_launches
     for path, name in (("serve", "found_cell"), ("found", "found_cell"),
                        ("search", "node_mixed"), ("attention", "attention"),
                        ("ntu serve", "found_cell"),
                        ("ntu search", "node_mixed"),
-                       ("ntu found", "found_cell")):
+                       ("ntu found", "found_cell"),
+                       ("ego serve", "found_cell")):
         if main_path_launches[path][name] == 0:
             raise AssertionError(f"kernel {name} never launched on its main "
                                  f"path ({path})")
@@ -2856,9 +3243,12 @@ def main(argv=None):
     served = [r for r in rows if r["B"] == 8 and r["dtype"] == "float32"
               and r["C"] == C and r["node_steps"] == 1
               and r["ops"] in ("ScaleDotAttn", "LinearGLU")]
-    # the NTU genotype's four cells at the serving batch, fp32
+    # the NTU genotype's four cells (two steps) and the Ego cells (three)
+    # at the serving batch, fp32
     ntu_cells = [r for r in rows if r["C"] == NTU_C and r["B"] == NTU_BATCH
-                 and r["dtype"] == "float32"]
+                 and r["node_steps"] == 2 and r["dtype"] == "float32"]
+    ego_cells = [r for r in rows if r["C"] == EGO_C and r["B"] == EGO_BATCH
+                 and r["node_steps"] == 3 and r["dtype"] == "float32"]
     mean = lambda k: sum(r[k] for r in served) / len(served)  # noqa: E731
     err = lambda rs, dt: max(r["max_abs_err"] for r in rs  # noqa: E731
                              if r["dtype"] == dt)
@@ -2867,7 +3257,8 @@ def main(argv=None):
     (mixed_ntu,) = [r for r in mixed_rows if "ms" in r and r["C"] == NTU_C
                     and r["dtype"] == "float32"]
     launches = {p: main_path_launches[p]
-                for p in ("serve", "found", "ntu serve", "ntu found")}
+                for p in ("serve", "found", "ntu serve", "ntu found",
+                          "ego serve")}
     attn512 = attn_times[512]
     kernels = {"kernels": [{
         "name": "found_cell",
@@ -2881,7 +3272,8 @@ def main(argv=None):
             launches["found"]["found_cell"],
             "ntu serve": launches["ntu serve"]["found_cell"],
             "ntu found test phase and test-only":
-            launches["ntu found"]["found_cell"]},
+            launches["ntu found"]["found_cell"],
+            "ego serve": launches["ego serve"]["found_cell"]},
         "max_abs_err": err(rows, "float32"),
         "max_abs_err_bf16": err(rows, "bfloat16"),
         "ms": mean("ms"),
@@ -2894,6 +3286,9 @@ def main(argv=None):
         "plain_call_ms": mean("plain_call_ms"),
         "ntu_width_B96": {k: sum(r[k] for r in ntu_cells) / len(ntu_cells)
                           for k in ("ms", "plain_ms", "bound_ms",
+                                    "tc_bound_ms")},
+        "ego_width_B96": {k: sum(r[k] for r in ego_cells) / len(ego_cells)
+                          for k in ("ms", "alt_ms", "plain_ms", "bound_ms",
                                     "tc_bound_ms")},
     }, {
         "name": "node_mixed",
@@ -2950,7 +3345,7 @@ def main(argv=None):
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    log(f"[12 result] {report['seconds']:.1f} s"
+    log(f"[13 result] {report['seconds']:.1f} s"
         + (f"; full report in {args.out}" if args.out else ""))
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)

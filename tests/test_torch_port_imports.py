@@ -40,7 +40,8 @@ def test_port_imports_no_jax_or_reference():
                  "ops.fusion_ops", "models.supernet", "search.bilevel",
                  "search.loop", "search.scheduler", "utils.experiment",
                  "visualize", "models.hcn", "models.inflated_resnet",
-                 "models.ntu", "data.ntu"):
+                 "models.ntu", "data.ntu", "models.resnext", "models.ego",
+                 "data.ego", "cli.ego"):
         assert f"bmnas_tpu_torch.{name}" in res["imported"], name
     assert len(res["imported"]) >= 33
     bad = [m for m in res["modules"] if _forbidden(m)]

@@ -204,9 +204,18 @@ def test_serve_cli_matches_jax_cli(nets, tmp_path, capsys):
     assert got["value"] == pytest.approx(want["value"], abs=1e-6)
 
 
-def test_serve_cli_later_tasks_not_ported():
-    """Ego is refused with its ROADMAP item; NTU is served
-    (tests/test_torch_port_ntu_serve.py)."""
+def test_serve_cli_later_tasks_not_ported(tmp_path):
+    """Every task is served (NTU: tests/test_torch_port_ntu_serve.py, Ego:
+    tests/test_torch_port_ego_serve.py); what is still to come is refused
+    with its ROADMAP item for Ego too: an exported program, and the
+    decode cache of the Ego search."""
     from bmnas_tpu_torch.cli.serve import main_serve
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main_serve(["--task", "ego", "--eval_exp_dir", "x"])
+    base = ["--task", "ego", "--eval_exp_dir", str(tmp_path), "--device",
+            "cpu", "--datadir", str(tmp_path)]
+    with pytest.raises(SystemExit, match="--export: not ported yet "
+                                         r"\(ROADMAP.md Queue 1 item 10"):
+        main_serve(base + ["--export", str(tmp_path / "art")])
+    with pytest.raises(SystemExit, match="--host_decode_cache_gb: not ported "
+                                         r"yet \(ROADMAP.md Queue 1 item 5b"):
+        main_serve(base + ["--host_decode_cache_gb", "4"])
+    assert os.listdir(tmp_path) == []
